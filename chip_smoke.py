@@ -5,16 +5,26 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-It prints the card, builds every CUDA kernel of the port from
-``deepsignal_tpu_torch/csrc``, holds each kernel against its plain PyTorch
-version at the shapes of the main path (and times kernel, plain version and
-one PyTorch library call that computes the same function), then runs
-``call_mods`` end to end through ``run_call_mods`` at the full width of the
-default model, with random seeded weights, on a synthetic feature TSV, in
-bfloat16 and in float32.  Any failed check exits non-zero before the last
-line, which is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
-checkout, it exits non-zero at once.  Scratch files go to
-``build/chip_smoke/``.
+It prints the card and builds every CUDA kernel of the port from
+``deepsignal_tpu_torch/csrc``.  It holds each kernel against its plain
+PyTorch version at the shapes of the main paths, and times the kernel, the
+plain version and one PyTorch library call that computes the same function.
+It checks the kernels' gradients against autograd through their plain
+versions, and that a batch the fused encoder does not take runs through the
+per-layer kernel.  Then it drives the two main paths at the full width of
+the default model:
+
+- ``call_mods`` end to end through ``run_call_mods``, with random seeded
+  weights, on a synthetic feature TSV, in bfloat16 and in float32;
+- ``train`` through ``train()`` on a synthetic separable labelled set
+  (written as TSV, converted to binary records by the port), in float32 for
+  two epochs and in bfloat16 for one, after which ``run_call_mods`` scores
+  the validation TSV with the best checkpoint.  One train step through the
+  kernels is held against the same step through the plain versions.
+
+Any failed check exits non-zero before the last line, which is
+``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, it
+exits non-zero at once.  Scratch files go to ``build/chip_smoke/``.
 """
 
 from __future__ import annotations
@@ -29,12 +39,26 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# the main path's shapes: batch 4096, k-mer 17, 128-wide embedding + 3
+# the call path's shapes: batch 4096, k-mer 17, 128-wide embedding + 3
 # features, hidden 256
 B, T, D, H = 4096, 17, 131, 256
 N_ROWS = 20000          # synthetic feature rows: 4 full device batches + tail
 SITES_PER_READ = 40
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # kernel vs plain, max abs
+# the train path: batch 512 (TrainConfig's default), 12 train batches and 2
+# validation batches (the second one padded), a sweep every 6 steps
+TRAIN_B = 512
+TRAIN_ROWS = 12 * TRAIN_B
+VALID_ROWS = 1000
+DISPLAY_STEP = 6
+# kernel vs plain, max abs: float32 sums in another order; in bfloat16 the
+# output may sit one bfloat16 rounding (2**-8 near 1) apart
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# one train step through the kernels vs the plain versions: the loss, and
+# all gradients as one vector, |g_kernel - g_plain| / |g_plain| (2-norms).
+# float32 layers pass on 1e-7 differences.  In bfloat16 some K2 outputs sit
+# one rounding (2**-8) apart, and the bfloat16 forward and backward
+# downstream round again at other places: a few 2**-8, with a margin.
+STEP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MARGIN = 1e-3           # label check skips sites with |p1 - p0| below this
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s of float32 FMA outside the tensor cores and of bfloat16 tensor cores
@@ -96,35 +120,39 @@ def encoder_inputs(rng, dtype, device):
     return x, kernels(), biases(), kernels(), biases()
 
 
+def cudnn_lstm(kernels, biases, d: int):
+    """``nn.LSTM(d, H, len(kernels))`` holding the TF-layout weights: gates
+    permuted from TF's i, j, f, o to PyTorch's i, f, g, o and the forget
+    bias folded in.  A yardstick only."""
+    import torch
+    k0 = kernels[0]
+    perm = torch.cat([torch.arange(g * H, (g + 1) * H) for g in (0, 2, 1, 3)])
+    lstm = torch.nn.LSTM(d, H, num_layers=len(kernels), batch_first=True).to(
+        device=k0.device, dtype=k0.dtype)
+    with torch.no_grad():
+        for layer, (k, b) in enumerate(zip(kernels, biases)):
+            d_in = d if layer == 0 else H
+            getattr(lstm, f"weight_ih_l{layer}").copy_(k[:d_in, perm].T)
+            getattr(lstm, f"weight_hh_l{layer}").copy_(k[d_in:, perm].T)
+            bias = getattr(lstm, f"bias_ih_l{layer}")
+            bias.copy_(b[perm])
+            bias[H:2 * H] += 1.0
+            getattr(lstm, f"bias_hh_l{layer}").zero_()
+    lstm.flatten_parameters()
+    return lstm
+
+
 def cudnn_encoder(args):
     """The same function as two cuDNN ``nn.LSTM(num_layers=3)`` calls (fw on
-    x, bw on x reversed in time), gates permuted from TF's i, j, f, o to
-    PyTorch's i, f, g, o and the forget bias folded in.  A yardstick only."""
+    x, bw on x reversed in time).  A yardstick only."""
     import torch
     x, kf, bf, kb, bb = args
-    perm = torch.cat([torch.arange(g * H, (g + 1) * H) for g in (0, 2, 1, 3)])
-    forget = torch.zeros(4 * H, device=x.device, dtype=x.dtype)
-    forget[H:2 * H] = 1.0
-    lstms = []
-    for ks, bs in ((kf, bf), (kb, bb)):
-        lstm = torch.nn.LSTM(D, H, num_layers=3, batch_first=True).to(
-            device=x.device, dtype=x.dtype)
-        with torch.no_grad():
-            for layer, (k, b) in enumerate(zip(ks, bs)):
-                d_in = D if layer == 0 else H
-                getattr(lstm, f"weight_ih_l{layer}").copy_(k[:d_in, perm].T)
-                getattr(lstm, f"weight_hh_l{layer}").copy_(k[d_in:, perm].T)
-                getattr(lstm, f"bias_ih_l{layer}").copy_(b[perm] + forget)
-                getattr(lstm, f"bias_hh_l{layer}").zero_()
-        lstm.flatten_parameters()
-        lstms.append(lstm)
+    fw, bw = cudnn_lstm(kf, bf, D), cudnn_lstm(kb, bb, D)
     xr = x.flip(1)
 
     def run():
         with torch.no_grad():
-            fw = lstms[0](x)[0][:, -1]
-            bw = lstms[1](xr)[0][:, -1]
-        return torch.cat([fw, bw], dim=1)
+            return torch.cat([fw(x)[0][:, -1], bw(xr)[0][:, -1]], dim=1)
     return run
 
 
@@ -178,6 +206,210 @@ def check_encoder(dtype_name: str, device) -> dict:
           f"{row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.3f} ms, "
           f"bound {bound:.3f} ms ({bound_by})", flush=True)
     return row
+
+
+# --------------------------------------------------------------------------
+# K2: the per-layer LSTM scan
+
+
+def scan_inputs(rng, d, dtype, device):
+    import torch
+
+    def t(a):
+        return torch.from_numpy(a.astype("float32")).to(device).to(dtype)
+
+    return (t(rng.normal(0, 1, (TRAIN_B, T, d))),
+            t(rng.uniform(-0.07, 0.07, (d + H, 4 * H))),
+            t(rng.normal(0, 0.05, 4 * H)))
+
+
+def cudnn_scan(x, kernel, bias, reverse):
+    """The same function as one cuDNN ``nn.LSTM(D, H, 1)`` call on x
+    (flipped in time for ``reverse``).  Returns the timed call and a
+    function that brings its output to absolute time.  A yardstick only."""
+    import torch
+    lstm = cudnn_lstm([kernel], [bias], x.shape[2])
+    xin = x.flip(1) if reverse else x
+
+    def run():
+        with torch.no_grad():
+            return lstm(xin)[0]
+    return run, (lambda y: y.flip(1)) if reverse else (lambda y: y)
+
+
+def scan_bound_ms(d: int, dtype_name: str, elem: int) -> tuple:
+    """(bound_ms, bound_by) of one wrapper call: the input projection and
+    T steps of the recurrent product (the gate math is not counted)."""
+    flops = 2 * TRAIN_B * T * d * 4 * H + 2 * TRAIN_B * T * H * 4 * H
+    nbytes = (TRAIN_B * T * d + (d + H) * 4 * H + 4 * H
+              + TRAIN_B * T * H) * elem
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_scan(dtype_name: str, device) -> dict:
+    """K2 against its plain version at B=512, T=17, H=256 for D=131 (layer
+    0) and D=256 (layers 1-2), both directions.  The row's times are those
+    of the D=256 forward call, four of the six launches of a train step."""
+    import torch
+
+    from deepsignal_tpu_torch.core.device import torch_dtype
+    from deepsignal_tpu_torch.ops.bilstm import lstm_scan_plain
+    from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
+
+    dtype = torch_dtype(dtype_name)
+    rng = np.random.default_rng(19)
+    shapes = {}
+    for d in (D, H):
+        args = scan_inputs(rng, d, dtype, device)
+        for reverse in (False, True):
+            with torch.no_grad():
+                got = lstm_layer_scan(*args, reverse=reverse)
+                want = lstm_scan_plain(*args, reverse=reverse)
+            torch.cuda.synchronize()
+            key = f"D{d}_{'bw' if reverse else 'fw'}"
+            check(tuple(got.shape) == (TRAIN_B, T, H) and got.dtype == dtype,
+                  f"K2 {dtype_name} {key}: {tuple(got.shape)} {got.dtype}")
+            check(bool(torch.isfinite(got).all()),
+                  f"K2 {dtype_name} {key}: non-finite")
+            err = (got.float() - want.float()).abs().max().item()
+            library, to_time_order = cudnn_scan(*args, reverse)
+            lib_err = (to_time_order(library()).float()
+                       - want.float()).abs().max().item()
+            print(f"K2 {dtype_name} {key}: max_abs_err {err:.3e} (tolerance "
+                  f"{TOL[dtype_name]:g}); cuDNN yardstick vs plain "
+                  f"{lib_err:.3e}", flush=True)
+            check(err <= TOL[dtype_name], f"K2 {dtype_name} {key}: error "
+                  f"{err} above {TOL[dtype_name]}")
+            shapes[key] = {"max_abs_err": err}
+            if reverse:
+                continue
+
+            def kernel_call():
+                with torch.no_grad():
+                    lstm_layer_scan(*args, reverse=False)
+
+            def plain_call():
+                with torch.no_grad():
+                    lstm_scan_plain(*args, reverse=False)
+            bound, bound_by = scan_bound_ms(d, dtype_name, got.element_size())
+            shapes[key].update(ms=cuda_ms(kernel_call),
+                               plain_ms=cuda_ms(plain_call),
+                               library_ms=cuda_ms(library), bound_ms=bound,
+                               bound_by=bound_by)
+            print(f"K2 {dtype_name} {key}: kernel {shapes[key]['ms']:.3f} "
+                  f"ms, plain {shapes[key]['plain_ms']:.3f} ms, cuDNN "
+                  f"{shapes[key]['library_ms']:.3f} ms, bound {bound:.4f} ms "
+                  f"({bound_by})", flush=True)
+    row = shapes[f"D{H}_fw"]
+    return {"name": f"lstm_scan_{'f32' if dtype_name == 'float32' else 'bf16'}",
+            "route": "cuda", "source": "deepsignal_tpu_torch/csrc/lstm_scan.cu",
+            "replaces": "deepsignal_tpu/ops/pallas/lstm.py:202",
+            "launches": None,
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shapes": shapes}
+
+
+# --------------------------------------------------------------------------
+# gradients and the per-layer path on the card
+
+
+def check_gradients(dtype_name: str, device) -> dict:
+    """K1's and K2's autograd gradients (x, kernels, biases) at B=512
+    against autograd through their plain versions, with a loss linear in
+    the output (so both backward passes get the same cotangent)."""
+    import torch
+
+    from deepsignal_tpu_torch.core.device import torch_dtype
+    from deepsignal_tpu_torch.ops.bilstm import (bilstm_encoder_plain,
+                                                 lstm_scan_plain)
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
+
+    dtype = torch_dtype(dtype_name)
+    rng = np.random.default_rng(23)
+    x, kf, bf, kb, bb = encoder_inputs(rng, dtype, device)
+    x = x[:TRAIN_B].contiguous()
+    cases = {
+        "K1": ([x, *kf, *bf, *kb, *bb],
+               lambda x, *p: bilstm_encoder_fused(x, p[0:3], p[3:6], p[6:9],
+                                                  p[9:12]),
+               lambda x, *p: bilstm_encoder_plain(x, p[0:3], p[3:6], p[6:9],
+                                                  p[9:12])),
+        "K2": (list(scan_inputs(rng, H, dtype, device)),
+               lambda *a: lstm_layer_scan(*a, reverse=True),
+               lambda *a: lstm_scan_plain(*a, reverse=True)),
+    }
+    errs = {}
+    for name, (arrays, fn, plain) in cases.items():
+        grads = []
+        for f in (fn, plain):
+            args = [a.detach().clone().requires_grad_(True) for a in arrays]
+            out = f(*args)
+            weights = torch.linspace(-1, 1, out.numel(), device=device)
+            (out.float() * weights.reshape(out.shape)).sum().backward()
+            grads.append([a.grad.float() for a in args])
+        torch.cuda.synchronize()
+        # the backward of each Function is autograd through the plain
+        # version: the same arithmetic, equal up to library sum order
+        rel = max((g - w).abs().max().item() / max(w.abs().max().item(),
+                                                   1e-30)
+                  for g, w in zip(*grads))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads[0])
+        print(f"gradients {name} {dtype_name}: largest difference / largest "
+              f"gradient {rel:.3e} over {len(arrays)} inputs", flush=True)
+        check(finite, f"gradients {name} {dtype_name}: non-finite")
+        check(rel <= 1e-5, f"gradients {name} {dtype_name}: {rel} above 1e-5")
+        errs[name] = rel
+    return errs
+
+
+def check_small_batch(dtype_name: str, device) -> None:
+    """A batch of 4, which the fused kernel does not take, runs the
+    encoder's per-layer path: six K2 launches and none of K1, and the same
+    output as the encoder with the plain scan (and, in float32, as the plain
+    encoder)."""
+    from unittest import mock
+
+    import torch
+
+    from deepsignal_tpu_torch.core.device import torch_dtype
+    from deepsignal_tpu_torch.models import layers
+    from deepsignal_tpu_torch.ops.bilstm import (bilstm_encoder_plain,
+                                                 lstm_scan_plain)
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
+
+    dtype = torch_dtype(dtype_name)
+    enc = layers.BiLSTMEncoder(D, H, 3).to(device)
+    gen = torch.Generator(device=device).manual_seed(29)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.uniform_(-0.07, 0.07, generator=gen)
+    x = torch.randn(4, T, D, device=device, generator=gen).to(dtype)
+    scans, fused = lstm_layer_scan.launches, bilstm_encoder_fused.launches
+    with torch.no_grad():
+        got = enc(x)
+        torch.cuda.synchronize()
+        check(lstm_layer_scan.launches - scans == 6
+              and bilstm_encoder_fused.launches == fused,
+              f"batch 4 {dtype_name}: {lstm_layer_scan.launches - scans} K2 "
+              f"and {bilstm_encoder_fused.launches - fused} K1 launches")
+        with mock.patch.object(layers, "lstm_layer_scan", lstm_scan_plain):
+            want = enc(x)
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.float32:
+            params = [[getattr(getattr(enc, f"{side}_{i}"), leaf)
+                       for i in range(3)]
+                      for side in ("fw", "bw") for leaf in ("kernel", "bias")]
+            ref = bilstm_encoder_plain(x, *params)
+            err = max(err, (got - ref).abs().max().item())
+    print(f"batch 4 {dtype_name}: 6 K2 launches, max_abs_err {err:.3e} "
+          f"(tolerance {TOL[dtype_name]:g})", flush=True)
+    check(err <= TOL[dtype_name], f"batch 4 {dtype_name}: error {err}")
 
 
 # --------------------------------------------------------------------------
@@ -391,6 +623,314 @@ def check_first_batch(dtype_name, tsv, ckpt, probs, labels) -> None:
           f"encoder")
 
 
+# --------------------------------------------------------------------------
+# train
+
+
+def write_labelled_features(path: str, n: int, cfg, rng) -> None:
+    """A separable labelled set: the label shifts the k-mer means and the
+    central signals by +-0.5 (unit noise), so a few steps learn it."""
+    from deepsignal_tpu_torch.io.feature_codec import format_feature_row
+    k, s = cfg.kmer_len, cfg.cent_signals_len
+    bases = np.array(list("ACGT"))
+    with open(path, "w") as f:
+        for i in range(n):
+            label = int(rng.integers(0, 2))
+            shift = 0.5 if label else -0.5
+            kmer = bases[rng.integers(0, 4, k)]
+            kmer[k // 2:k // 2 + 2] = ["C", "G"]
+            f.write(format_feature_row(
+                "chr1", 1000 + i, "+", 1000 + i,
+                f"read{i // SITES_PER_READ:05d}", "t", "".join(kmer),
+                rng.normal(shift, 1, k), np.abs(rng.normal(0.3, 0.1, k)),
+                rng.integers(3, 30, k),
+                np.around(rng.normal(shift, 1, s), 6), label) + "\n")
+
+
+def recording_trainer(model_cfg, train_cfg):
+    """The port's Trainer, which also records each train step's loss and
+    counts train and eval steps; ``train()`` drives it as its own."""
+    from deepsignal_tpu_torch.train.trainer import Trainer
+
+    class RecordingTrainer(Trainer):
+        def __init__(self):
+            super().__init__(model_cfg, train_cfg)
+            self.losses = []
+            self.train_steps = self.eval_steps = 0
+
+        def train_on_batch_async(self, batch, lr):
+            self.train_steps += 1
+            return super().train_on_batch_async(batch, lr)
+
+        def resolve_metrics(self, handle):
+            out = super().resolve_metrics(handle)
+            self.losses.append(out[0])
+            return out
+
+        def eval_on_batch_async(self, batch):
+            self.eval_steps += 1
+            return super().eval_on_batch_async(batch)
+
+    return RecordingTrainer()
+
+
+def run_train(dtype_name: str, epochs: int, files: dict, work: str) -> tuple:
+    """``train()`` at full width with keep_prob 0.5, with the checks on its
+    kernel launches, losses and logs; returns (result, trainer)."""
+    import re
+
+    import torch
+
+    from deepsignal_tpu_torch.core.config import ModelConfig, TrainConfig
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
+    from deepsignal_tpu_torch.train.trainer import train
+
+    cfg = ModelConfig(compute_dtype=dtype_name)
+    tcfg = TrainConfig(batch_size=TRAIN_B, keep_prob=0.5, max_epoch_num=epochs,
+                       min_epoch_num=1, display_step=DISPLAY_STEP,
+                       save_state=False)
+    trainer = recording_trainer(cfg, tcfg)
+    model_dir = os.path.join(work, f"model_{dtype_name}")
+    log_dir = os.path.join(work, f"logs_{dtype_name}")
+    bilstm_encoder_fused.launches = lstm_layer_scan.launches = 0
+    t0 = time.time()
+    summary = train(files["train_bin"], files["valid_bin"], model_dir, log_dir,
+                    cfg, tcfg, is_binary=True, trainer=trainer)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    k1, k2 = bilstm_encoder_fused.launches, lstm_layer_scan.launches
+    steps, losses = trainer.train_steps, trainer.losses
+    valid_batches = -(-VALID_ROWS // TRAIN_B)
+    with open(os.path.join(log_dir, "train.txt")) as f:
+        train_log = f.read().splitlines()
+    with open(os.path.join(log_dir, "valid.txt")) as f:
+        valid_log = f.read().splitlines()
+    sweeps = len(valid_log)
+    tag = f"train {dtype_name}"
+    check(steps == summary["epochs_run"] * (TRAIN_ROWS // TRAIN_B),
+          f"{tag}: {steps} steps in {summary['epochs_run']} epochs")
+    check(k2 == 6 * steps, f"{tag}: K2 launched {k2} times for {steps} steps")
+    check(sweeps > 0 and k1 == trainer.eval_steps == valid_batches * sweeps,
+          f"{tag}: K1 launched {k1} times, {trainer.eval_steps} eval steps, "
+          f"{sweeps} sweeps of {valid_batches} batches")
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f"{tag}: losses {losses}")
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    check(last < first, f"{tag}: mean loss of the last 4 steps {last:.4f} "
+          f"not below the first 4 {first:.4f}")
+    line = re.compile(r"epoch:\d+, iterid:\d+, loss:\d+\.\d{3}, "
+                      r"accuracy:\d\.\d{3}, recall:\d\.\d{3}, "
+                      r"precision:\d\.\d{3}$")
+    check(len(train_log) == sweeps and all(
+        line.match(x) for x in train_log + valid_log),
+        f"{tag}: log lines {train_log[:2]} {valid_log[:2]}")
+    check(summary["model_path"] is not None
+          and os.path.isdir(summary["model_path"]), f"{tag}: no checkpoint")
+    res = {"dtype": dtype_name, "steps": steps, "epochs": summary["epochs_run"],
+           "seconds": seconds, "wall_sites_per_s": steps * TRAIN_B / seconds,
+           "sweeps": sweeps, "k1_launches": k1, "k2_launches": k2,
+           "loss_first4": first, "loss_last4": last,
+           "best_accuracy": summary["best_accuracy"]}
+    print(f"{tag}: {json.dumps(res)}", flush=True)
+    print(f"{tag}: {train_log[-1]} | valid {valid_log[-1]}", flush=True)
+    return res, trainer, summary["model_path"]
+
+
+def score_checkpoint(dtype_name: str, ckpt: str, files: dict, work: str,
+                     min_accuracy: float) -> dict:
+    """``run_call_mods`` on the validation TSV with the trained
+    checkpoint: one row per site, finite probabilities, K1 launched once
+    per device batch, and calls that agree with the labels."""
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.runtime.caller import run_call_mods
+
+    out_path = os.path.join(work, f"valid_calls_{dtype_name}.tsv")
+    bilstm_encoder_fused.launches = 0
+    n = run_call_mods(files["valid_tsv"], ckpt, out_path, batch_size=B,
+                      compute_dtype=dtype_name)
+    k1 = bilstm_encoder_fused.launches
+    with open(out_path) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    with open(files["valid_tsv"]) as f:
+        labels = np.array([int(line.rsplit("\t", 1)[1]) for line in f])
+    p = np.array([[float(r[6]), float(r[7])] for r in rows])
+    calls = np.array([int(r[8]) for r in rows])
+    tag = f"score {dtype_name}"
+    check(n == VALID_ROWS == len(rows), f"{tag}: {n} calls, {len(rows)} rows")
+    check(k1 == -(-VALID_ROWS // B), f"{tag}: K1 launched {k1} times")
+    check(bool(np.isfinite(p).all()), f"{tag}: non-finite probabilities")
+    accuracy = float((calls == labels).mean())
+    print(f"{tag}: {n} calls, K1 launches {k1}, accuracy against the labels "
+          f"{accuracy:.4f}", flush=True)
+    check(accuracy >= min_accuracy, f"{tag}: accuracy {accuracy} below "
+          f"{min_accuracy}")
+    return {"rows": n, "k1_launches": k1, "accuracy": accuracy}
+
+
+def profile_steps(step, steps: int = 3, top: int = 8) -> tuple:
+    """Device time per step from ``torch.profiler`` (the sum of every
+    kernel's time over ``steps`` steps, divided by ``steps``), and the
+    kernels that take the most of it (ms per step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    # the kernels' own events, as the profiler's table sums them (an op's
+    # self device time repeats its kernels' time)
+    per_op = sorted(((e.self_device_time_total / steps / 1e3, e.key[:80])
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation), reverse=True)
+    device_ms = sum(ms for ms, _ in per_op)
+    check(device_ms > 0, "the profiler saw no device time")
+    return device_ms, [[key, ms] for ms, key in per_op[:top]]
+
+
+def time_train_step(trainer, files) -> dict:
+    """ms per train step (host clock around synchronized steps, median of
+    10 after 2 warm-up steps) and one step split by CUDA events into the
+    forward with the loss, the backward and the optimizer step, with the
+    encoder's own forward and backward timed alone beside it."""
+    import torch
+
+    from deepsignal_tpu_torch.core.device import torch_dtype
+    from deepsignal_tpu_torch.train.data import open_dataset
+    from deepsignal_tpu_torch.train.trainer import INPUTS, masked_mean_loss
+
+    batch = next(open_dataset(files["train_bin"], True).batches(TRAIN_B))
+    staged = trainer.stage_batch(batch)
+    lr = trainer.tcfg.learning_rate
+    times = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_on_batch(staged, lr)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(times))
+
+    tensors, mask, _ = staged
+    model, tcfg = trainer.model, trainer.tcfg
+
+    def split(fwd, bwd, opt=None, reps=6):
+        parts = []
+        for i in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            trainer.optimizer.zero_grad(set_to_none=True)
+            ev[0].record()
+            out = fwd()
+            ev[1].record()
+            bwd(out)
+            ev[2].record()
+            if opt is not None:
+                opt()
+            ev[3].record()
+            torch.cuda.synchronize()
+            if i:
+                parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+        return np.median(np.array(parts), axis=0).tolist()
+
+    fwd_ms, bwd_ms, opt_ms = split(
+        lambda: masked_mean_loss(
+            model(*(tensors[k] for k in INPUTS), train=True,
+                  keep_prob=tcfg.keep_prob, generator=trainer.generator),
+            tensors["labels"], mask, trainer.mcfg.class_num, tcfg.pos_weight),
+        lambda loss: loss.backward(), trainer.optimizer.step)
+    enc = model.event_model
+    x = torch.randn(TRAIN_B, T, D, device=trainer.device).to(
+        torch_dtype(trainer.mcfg.compute_dtype)).requires_grad_(True)
+    g = torch.randn(TRAIN_B, 2 * H, device=trainer.device).to(x.dtype)
+    enc_fwd_ms, enc_bwd_ms, _ = split(
+        lambda: enc(x, True, tcfg.keep_prob, trainer.generator),
+        lambda out: out.backward(g))
+    device_ms, top = profile_steps(lambda: trainer.train_on_batch(staged, lr))
+    res = {"ms_per_step": step_ms, "sites_per_s": TRAIN_B / step_ms * 1e3,
+           "device_ms_per_step": device_ms,
+           "device_idle_share": 1 - device_ms / step_ms, "top_ops": top,
+           "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
+           "encoder_forward_ms": enc_fwd_ms,
+           "encoder_backward_ms": enc_bwd_ms}
+    print(f"train step {trainer.mcfg.compute_dtype}: {json.dumps(res)}",
+          flush=True)
+    return res
+
+
+def check_step_parity(dtype_name: str, device) -> dict:
+    """One train step's loss and gradients through K2 (and K1's absence)
+    against the same step with the plain scan patched in, from the same
+    weights, batch and dropout seed (so the same dropout masks)."""
+    from unittest import mock
+
+    import torch
+
+    from deepsignal_tpu_torch.core.config import ModelConfig
+    from deepsignal_tpu_torch.models import layers
+    from deepsignal_tpu_torch.models.deepsignal import DeepSignalNet
+    from deepsignal_tpu_torch.ops.bilstm import lstm_scan_plain
+    from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
+    from deepsignal_tpu_torch.train.trainer import masked_mean_loss
+
+    cfg = ModelConfig(compute_dtype=dtype_name)
+    model = DeepSignalNet(cfg, seed=31).to(device)
+    rng = np.random.default_rng(37)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    inputs = [t(rng.integers(0, 1024, (TRAIN_B, T)).astype(np.int32)),
+              t(rng.normal(0, 1, (TRAIN_B, T)).astype(np.float32)),
+              t(np.abs(rng.normal(0.3, 0.1, (TRAIN_B, T))).astype(np.float32)),
+              t(rng.integers(3, 30, (TRAIN_B, T)).astype(np.float32)),
+              t(rng.normal(0, 1, (TRAIN_B, cfg.cent_signals_len)).astype(
+                  np.float32))]
+    labels = t(rng.integers(0, 2, TRAIN_B).astype(np.int32))
+    mask = torch.ones(TRAIN_B, device=device)
+    params = list(model.parameters())
+
+    def step():
+        gen = torch.Generator(device=device).manual_seed(41)
+        logits = model(*inputs, train=True, keep_prob=0.5, generator=gen)
+        loss = masked_mean_loss(logits, labels, mask, cfg.class_num, 1.0)
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    scans = lstm_layer_scan.launches
+    loss_k, grads_k = step()
+    check(lstm_layer_scan.launches - scans == 6,
+          f"step parity {dtype_name}: {lstm_layer_scan.launches - scans} K2 "
+          f"launches")
+    with mock.patch.object(layers, "lstm_layer_scan", lstm_scan_plain):
+        loss_p, grads_p = step()
+    flat_k, flat_p = (torch.cat([g.float().flatten() for g in grads])
+                      for grads in (grads_k, grads_p))
+    rel = ((flat_k - flat_p).norm() / flat_p.norm()).item()
+    # reported, not checked: a tensor whose gradient is a sum with much
+    # cancellation (a batch-norm bias) shows bfloat16's noise, not K2's
+    worst, name = max(
+        ((a.float() - b.float()).norm().item()
+         / max(b.float().norm().item(), 1e-30), name)
+        for (name, _), a, b in zip(model.named_parameters(), grads_k,
+                                   grads_p))
+    dloss = abs(loss_k - loss_p)
+    print(f"step parity {dtype_name}: loss {loss_k:.6f} vs plain "
+          f"{loss_p:.6f}, relative gradient difference {rel:.3e} (tolerance "
+          f"{STEP_TOL[dtype_name]:g}), largest for one tensor {worst:.3e} "
+          f"({name})", flush=True)
+    check(np.isfinite(loss_k) and dloss <= STEP_TOL[dtype_name] * abs(loss_p),
+          f"step parity {dtype_name}: loss {loss_k} vs {loss_p}")
+    check(rel <= STEP_TOL[dtype_name],
+          f"step parity {dtype_name}: gradients {rel}")
+    return {"loss": loss_k, "loss_plain": loss_p, "grad_rel_err": rel,
+            "worst_tensor_rel_err": worst, "worst_tensor": name}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -400,11 +940,12 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from deepsignal_tpu_torch.core.config import ModelConfig
     from deepsignal_tpu_torch.core.device import resolve_device
-    from deepsignal_tpu_torch.ops.cuda import build
-    from deepsignal_tpu_torch.ops.cuda.lstm import LIBRARY
+    from deepsignal_tpu_torch.io.feature_codec import convert_txt_to_binary
+    from deepsignal_tpu_torch.ops.cuda import build, lstm, lstm_scan
     from deepsignal_tpu_torch.train.checkpoints import (
         ckpt_name, save_checkpoint, state_dict_to_variables)
 
+    start = time.time()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -412,14 +953,21 @@ def main() -> None:
     device = resolve_device(None)
 
     t0 = time.time()
-    reports = build.build_libraries([LIBRARY])
+    reports = build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    kernel_rows = {d: check_encoder(d, device) for d in ("bfloat16", "float32")}
+    dtypes = ("bfloat16", "float32")
+    k1_rows = {d: check_encoder(d, device) for d in dtypes}
+    k2_rows = {d: check_scan(d, device) for d in dtypes}
+    grads = {d: check_gradients(d, device) for d in dtypes}
+    for d in dtypes:
+        check_small_batch(d, device)
+    launches = {("K1", d): {} for d in dtypes}
+    launches.update({("K2", d): {} for d in dtypes})
 
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -437,18 +985,52 @@ def main() -> None:
           flush=True)
 
     e2e = []
-    for dtype_name in ("bfloat16", "float32"):
+    for dtype_name in dtypes:
         res, probs, labels, rows = run_e2e(
             dtype_name, tsv, ckpt, os.path.join(work, f"calls_{dtype_name}.tsv"))
-        kernel_rows[dtype_name]["launches"] = res["launches"]
+        launches["K1", dtype_name]["call_mods"] = res["launches"]
         check_first_batch(dtype_name, tsv, ckpt, probs, labels)
         if dtype_name == "bfloat16":
             res["stages"] = time_stages(tsv, ckpt, rows)
         e2e.append(res)
 
+    t0 = time.time()
+    files = {k: os.path.join(work, name) for k, name in (
+        ("train_tsv", "train.tsv"), ("valid_tsv", "valid.tsv"),
+        ("train_bin", "train.bin"), ("valid_bin", "valid.bin"))}
+    for part, n in (("train", TRAIN_ROWS), ("valid", VALID_ROWS)):
+        write_labelled_features(files[f"{part}_tsv"], n, cfg, rng)
+        check(convert_txt_to_binary(files[f"{part}_tsv"], files[f"{part}_bin"])
+              == n, f"{part}: binary records")
+    print(f"setup: {TRAIN_ROWS} + {VALID_ROWS} labelled rows as TSV and "
+          f"binary in {time.time() - t0:.1f} s", flush=True)
+    trains = []
+    for dtype_name, epochs in (("float32", 2), ("bfloat16", 1)):
+        res, trainer, best = run_train(dtype_name, epochs, files, work)
+        launches["K1", dtype_name]["train"] = res["k1_launches"]
+        launches["K2", dtype_name]["train"] = res["k2_launches"]
+        res["score"] = score_checkpoint(dtype_name, best, files, work,
+                                        min_accuracy=0.6)
+        launches["K1", dtype_name]["score"] = res["score"]["k1_launches"]
+        res["step"] = time_train_step(trainer, files)
+        del trainer
+        trains.append(res)
+    parity = {d: check_step_parity(d, device) for d in dtypes}
+
+    rows = []
+    for kernel, by_dtype in (("K1", k1_rows), ("K2", k2_rows)):
+        for d in dtypes:
+            row = by_dtype[d]
+            row["launches_by_path"] = launches[kernel, d]
+            row["launches"] = sum(launches[kernel, d].values())
+            check(row["launches"] > 0, f"{row['name']}: no launch on a main "
+                  f"path")
+            rows.append(row)
+    print(f"chip_smoke: {time.time() - start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"e2e": e2e, "card": card}), flush=True)
-    print(json.dumps({"kernels": list(kernel_rows.values())}), flush=True)
+    print(json.dumps({"e2e": e2e, "train": trains, "gradients": grads,
+                      "step_parity": parity, "card": card}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,9 @@
-"""deepsignal-tpu-torch command line: the ``call_mods`` subcommand.
+"""deepsignal-tpu-torch command line: the ``call_mods`` and ``train``
+subcommands.
 
 Flag names and defaults follow ``deepsignal_tpu``'s CLI (and the
 reference's); ``--device`` (default ``cuda``) is new.  Torch is imported
-only inside the handler.
+only inside the handlers.
 """
 
 from __future__ import annotations
@@ -39,6 +40,26 @@ def main_call_mods(args) -> None:
                   f5_batch_num=args.f5_batch_num,
                   model_cfg_override=override,
                   compute_dtype=args.compute_dtype, device=args.device)
+
+
+def main_train(args) -> None:
+    display_args(args)
+    from ..core.config import ModelConfig, TrainConfig
+    from ..train.trainer import train
+    mcfg = ModelConfig(
+        kmer_len=args.kmer_len, cent_signals_len=args.cent_signals_len,
+        class_num=args.class_num, is_cnn=str2bool(args.is_cnn),
+        is_rnn=str2bool(args.is_rnn), is_base=str2bool(args.is_base),
+        pos_weight=args.pos_weight)
+    tcfg = TrainConfig(
+        batch_size=args.batch_size, learning_rate=args.learning_rate,
+        decay_rate=args.decay_rate, keep_prob=args.keep_prob,
+        max_epoch_num=args.max_epoch_num, min_epoch_num=args.min_epoch_num,
+        display_step=args.display_step, pos_weight=args.pos_weight,
+        seed=args.seed)
+    train(args.train_file, args.valid_file, args.model_dir, args.log_dir,
+          mcfg, tcfg, is_binary=str2bool(args.is_binary),
+          resume=str2bool(args.resume), device=args.device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,6 +104,41 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cent_signals_len", "-y", type=int, default=360,
                    help="central signal points used. default 360")
     p.set_defaults(func=main_call_mods)
+
+    p = subparsers.add_parser(
+        "train", description="train a model; needs independent training and "
+                             "validation datasets")
+    p.add_argument("--train_file", type=str, required=True)
+    p.add_argument("--valid_file", type=str, required=True)
+    p.add_argument("--is_binary", type=str, default="no",
+                   choices=["yes", "no"],
+                   help="binary-format train/valid files")
+    p.add_argument("--model_dir", "-o", type=str, required=True)
+    p.add_argument("--log_dir", "-g", type=str, default=None)
+    p.add_argument("--is_cnn", type=str, default="yes")
+    p.add_argument("--is_base", type=str, default="yes")
+    p.add_argument("--is_rnn", type=str, default="yes")
+    p.add_argument("--kmer_len", "-x", default=17, type=int)
+    p.add_argument("--cent_signals_len", "-y", default=360, type=int)
+    p.add_argument("--batch_size", "-b", default=512, type=int)
+    p.add_argument("--learning_rate", "-l", default=0.001, type=float)
+    p.add_argument("--decay_rate", "-d", default=0.1, type=float)
+    p.add_argument("--class_num", "-c", default=2, type=int)
+    p.add_argument("--keep_prob", default=0.5, type=float)
+    p.add_argument("--max_epoch_num", default=10, type=int)
+    p.add_argument("--min_epoch_num", default=5, type=int)
+    p.add_argument("--display_step", default=100, type=int)
+    p.add_argument("--pos_weight", default=1.0, type=float)
+    p.add_argument("--seed", default=42, type=int,
+                   help="init/dropout/shuffle seed (reproducible runs)")
+    p.add_argument("--resume", type=str, default="no", choices=["yes", "no"],
+                   help="continue from the rolling train-state checkpoint in "
+                        "model_dir (params + optimizer + generator + shuffle "
+                        "stream); reproduces an unbroken run exactly")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device, default cuda; 'cpu' runs the plain "
+                        "versions of the kernels")
+    p.set_defaults(func=main_train)
     return parser
 
 

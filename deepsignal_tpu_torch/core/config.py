@@ -54,6 +54,27 @@ class ModelConfig:
 
 
 @dataclasses.dataclass
+class TrainConfig:
+    """Trainer knobs (deepsignal/deepsignal.py:364-384 defaults)."""
+
+    batch_size: int = 512
+    learning_rate: float = 0.001
+    decay_rate: float = 0.1
+    keep_prob: float = 0.5
+    max_epoch_num: int = 10
+    min_epoch_num: int = 5
+    display_step: int = 100
+    pos_weight: float = 1.0
+    seed: int = 42
+    # rolling full-train-state checkpoint at each epoch end (params +
+    # optimizer + generator + shuffle stream; enables exact resume).  The
+    # state fetch+serialize is ~0.5 GB for the full model: turn off for
+    # throwaway trainings (the best-model checkpointing at display-step
+    # boundaries is unaffected).
+    save_state: bool = True
+
+
+@dataclasses.dataclass
 class CallConfig:
     """call_mods knobs (deepsignal/deepsignal.py:258-267 defaults)."""
 

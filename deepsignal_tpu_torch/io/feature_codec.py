@@ -5,6 +5,10 @@ TSV columns (extract_features.py:1-4,289-303):
   chrom, pos, strand, pos_in_strand, readname, read_strand, k_mer,
   signal_means (k csv, 6dp), signal_stds (k csv, 6dp), signal_lens (k csv int),
   cent_signals (s csv), methy_label
+
+Binary record = struct ``'<{k}B{k}f{k}f{k}H{s}f1B'`` little-endian
+(scripts/generate_binary_feature_file.py:52-53, unpacked by
+tf_utils.py:7-28): for k=17, s=360 -> 1,628 bytes.
 """
 
 from __future__ import annotations
@@ -86,6 +90,97 @@ def parse_feature_lines(lines) -> FeatureBatch:
         signals=np.asarray(signals, dtype=np.float32),
         labels=np.asarray(labels, dtype=np.int32),
     )
+
+
+def binary_record_dtype(kmer_len: int = 17, signal_len: int = 360) -> np.dtype:
+    """Packed little-endian structured dtype of the reference's binary
+    record, struct format '<{k}B{k}f{k}f{k}H{s}f1B'
+    (scripts/generate_binary_feature_file.py:52-53)."""
+    return np.dtype([
+        ("bases", "u1", (kmer_len,)),
+        ("means", "<f4", (kmer_len,)),
+        ("stds", "<f4", (kmer_len,)),
+        ("lens", "<u2", (kmer_len,)),
+        ("signals", "<f4", (signal_len,)),
+        ("label", "u1"),
+    ])
+
+
+def binary_record_len(kmer_len: int = 17, signal_len: int = 360) -> int:
+    """Record byte length (train_model.py:67-79): 11*k + 4*s + 1."""
+    return kmer_len * 11 + signal_len * 4 + 1
+
+
+def parse_feature_bytes(block: bytes) -> FeatureBatch:
+    """Parse a bytes block of whole feature rows."""
+    return parse_feature_lines(block.decode().splitlines(True))
+
+
+def iter_feature_bytes_chunks(path: str, chunk_bytes: int = 8 << 20):
+    """Stream a TSV file as line-aligned byte blocks."""
+    with open(path, "rb") as rf:
+        carry = b""
+        while True:
+            block = rf.read(chunk_bytes)
+            if not block:
+                if carry:
+                    yield carry
+                return
+            block = carry + block
+            cut = block.rfind(b"\n")
+            if cut < 0:
+                carry = block
+                continue
+            carry = block[cut + 1:]
+            yield block[:cut + 1]
+
+
+def read_binary_features(path: str, kmer_len: int = 17,
+                         signal_len: int = 360) -> FeatureBatch:
+    """Load a whole binary feature file (tf_utils.py:7-28 layout)."""
+    rec = np.fromfile(path, dtype=binary_record_dtype(kmer_len, signal_len))
+    n = rec.shape[0]
+    return FeatureBatch(
+        sampleinfo=[""] * n,
+        kmers=rec["bases"].astype(np.int32),
+        means=rec["means"].astype(np.float32),
+        stds=rec["stds"].astype(np.float32),
+        lens=rec["lens"].astype(np.int32),
+        signals=rec["signals"].astype(np.float32),
+        labels=rec["label"].astype(np.int32),
+    )
+
+
+def convert_txt_to_binary(txt_path: str, bin_path: str, kmer_len: int = 17,
+                          signal_len: int = 360,
+                          chunk_lines: int = 100000) -> int:
+    """TSV features -> fixed-length binary records, streaming
+    (process_utils.py:355-373); returns the record count."""
+    dtype = binary_record_dtype(kmer_len, signal_len)
+    total = 0
+    with open(txt_path, "r") as rf, open(bin_path, "wb") as wf:
+        chunk: list[str] = []
+        for line in rf:
+            chunk.append(line)
+            if len(chunk) >= chunk_lines:
+                total += _write_binary_chunk(chunk, wf, dtype)
+                chunk = []
+        if chunk:
+            total += _write_binary_chunk(chunk, wf, dtype)
+    return total
+
+
+def _write_binary_chunk(lines: list, wf, dtype: np.dtype) -> int:
+    batch = parse_feature_lines(lines)
+    rec = np.empty(len(batch), dtype=dtype)
+    rec["bases"] = batch.kmers.astype(np.uint8)
+    rec["means"] = batch.means
+    rec["stds"] = batch.stds
+    rec["lens"] = batch.lens.astype(np.uint16)
+    rec["signals"] = batch.signals
+    rec["label"] = batch.labels.astype(np.uint8)
+    rec.tofile(wf)
+    return rec.shape[0]
 
 
 def iter_feature_batches_by_read(features_file: str,

@@ -9,21 +9,31 @@ PyTorch's defaults, the TF rule is written out:
   PyTorch's symmetric ``padding=`` is off by one in both, so every conv and
   max-pool pads explicitly with ``F.pad`` (max-pools with -inf).
 - the 7/s1 average pool excludes padding from the denominator.
-- batch norm at inference computes in the input dtype:
-  ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` (layers.py:145-161).
+- batch norm computes in the input dtype:
+  ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` (layers.py:145-161),
+  with the running statistics at inference and the batch's mean and biased
+  variance in training, when the running statistics move with momentum 0.9.
+- dropout is flax's ``nn.Dropout``: keep with probability ``keep_prob``,
+  scale the kept values by ``1 / keep_prob``; its bits come from an explicit
+  ``torch.Generator``.
 - parameters stay float32 and are cast to the input dtype at use.
+
+Modules take ``train`` (and ``keep_prob``, ``generator``) as arguments, as
+the flax modules do, and ignore ``nn.Module.training``.  Parameters are
+created empty; ``models.deepsignal.init_weights`` fills them.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.bilstm import bilstm_encoder_plain
 from ..ops.cuda.lstm import bilstm_encoder_fused, kernel_takes
+from ..ops.cuda.lstm_scan import lstm_layer_scan
 
 
 def tf_same_pads(length: int, window: int, stride: int):
@@ -37,8 +47,17 @@ def _ceil_half(n: int) -> int:
     return -(-n // 2)
 
 
-def _lecun_normal(shape, fan_in: int) -> nn.Parameter:
-    return nn.Parameter(torch.randn(shape) * fan_in ** -0.5)
+def dropout(x: torch.Tensor, keep_prob: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout(rate=1 - keep_prob)`` in training: each value kept
+    with probability ``keep_prob`` and scaled by ``1 / keep_prob``, the bits
+    drawn from ``generator`` (on x's device)."""
+    if keep_prob >= 1.0:
+        return x
+    if keep_prob <= 0.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, x.new_zeros(()))
 
 
 class TFLSTMLayer(nn.Module):
@@ -48,19 +67,23 @@ class TFLSTMLayer(nn.Module):
     def __init__(self, in_dim: int, hidden: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_dim + hidden, 4 * hidden))
-        nn.init.xavier_uniform_(self.kernel)
-        self.bias = nn.Parameter(torch.zeros(4 * hidden))
+        self.bias = nn.Parameter(torch.empty(4 * hidden))
 
 
 class BiLSTMEncoder(nn.Module):
     """Stacked bidirectional encoder (reference Event_model,
     layers.py:142-173), [B, T, D] -> [B, 2H] = concat(fw[:, -1], bw[:, 0]).
 
-    Inference only.  Where the fused kernel takes the shape (3 layers,
-    ``hidden % 128 == 0``, batch >= 8: the JAX package's fused rule) the
-    encoder goes through ``bilstm_encoder_fused``, which on CUDA launches the
-    kernel and on the CPU runs its plain version.  Other shapes run the
-    per-layer plain loop on the CPU and raise on CUDA."""
+    Two paths, chosen as the JAX package chooses (layers.py:92-115):
+
+    - fused: no live dropout and a shape the fused kernel takes (3 layers,
+      ``hidden % 128 == 0``, batch >= 8) -> ``bilstm_encoder_fused``;
+    - per layer otherwise: each layer-direction through ``lstm_layer_scan``,
+      then dropout on its whole [B, T, H] output (DropoutWrapper
+      output_keep_prob on every stacked cell, layers.py:51-54).
+
+    Both wrappers launch their kernel on CUDA and run the plain version on
+    the CPU, and both are differentiable."""
 
     def __init__(self, in_dim: int, hidden: int = 256, num_layers: int = 3):
         super().__init__()
@@ -71,38 +94,64 @@ class BiLSTMEncoder(nn.Module):
             self.add_module(f"fw_{i}", TFLSTMLayer(d, hidden))
             self.add_module(f"bw_{i}", TFLSTMLayer(d, hidden))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                keep_prob: float = 1.0,
+                generator: torch.Generator = None) -> torch.Tensor:
         dt = x.dtype
         layers = range(self.num_layers)
         kf = [getattr(self, f"fw_{i}").kernel.to(dt) for i in layers]
         bf = [getattr(self, f"fw_{i}").bias.to(dt) for i in layers]
         kb = [getattr(self, f"bw_{i}").kernel.to(dt) for i in layers]
         bb = [getattr(self, f"bw_{i}").bias.to(dt) for i in layers]
-        if kernel_takes(x.shape[0], self.hidden, self.num_layers):
-            return bilstm_encoder_fused(x.contiguous(), kf, bf, kb, bb)
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                f"the fused encoder kernel does not take batch {x.shape[0]}, "
-                f"hidden {self.hidden}, {self.num_layers} layers")
-        return bilstm_encoder_plain(x, kf, bf, kb, bb)
+        x = x.contiguous()
+        dropout_live = train and keep_prob < 1.0
+        if not dropout_live and kernel_takes(x.shape[0], self.hidden,
+                                             self.num_layers):
+            return bilstm_encoder_fused(x, kf, bf, kb, bb)
+        fw, bw = x, x
+        for i in layers:
+            fw = lstm_layer_scan(fw, kf[i], bf[i], reverse=False)
+            bw = lstm_layer_scan(bw, kb[i], bb[i], reverse=True)
+            if dropout_live:
+                fw = dropout(fw, keep_prob, generator)
+                bw = dropout(bw, keep_prob, generator)
+        # Event_model (layers.py:169-173): last fw step, first bw step
+        return torch.cat([fw[:, -1], bw[:, 0]], dim=1)
 
 
 class TFBatchNorm(nn.Module):
-    """``tf.contrib.layers.batch_norm`` at inference (eps 1e-3), over the
-    channel axis of [B, C, L], computed in the input dtype."""
+    """``tf.contrib.layers.batch_norm`` (decay 0.9, eps 1e-3) over the
+    channel axis of [B, C, L], computed in the input dtype.
 
-    def __init__(self, features: int, epsilon: float = 1e-3):
+    In training it normalizes with the batch's mean and biased variance
+    over (B, L) and moves the float32 running statistics in place:
+    ``stat = m * stat + (1 - m) * batch_stat`` with m and 1 - m the float32
+    values the JAX package uses."""
+
+    def __init__(self, features: int, epsilon: float = 1e-3,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        m = np.float32(momentum)
+        self._keep, self._take = float(m), float(np.float32(1) - m)
+        self.scale = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = x.dtype
-        mean = self.mean.to(dt)[:, None]
-        var = self.var.to(dt)[:, None]
+        if train:
+            mean = x.mean(dim=(0, 2))
+            var = torch.square(x - mean[:, None]).mean(dim=(0, 2))
+            with torch.no_grad():
+                self.mean.copy_(self._keep * self.mean
+                                + self._take * mean.float())
+                self.var.copy_(self._keep * self.var + self._take * var.float())
+            mean, var = mean[:, None], var[:, None]
+        else:
+            mean = self.mean.to(dt)[:, None]
+            var = self.var.to(dt)[:, None]
         inv = torch.rsqrt(var + var.new_tensor(self.epsilon))
         return (x - mean) * (inv * self.scale.to(dt)[:, None]) \
             + self.bias.to(dt)[:, None]
@@ -116,15 +165,15 @@ class ConvBNRelu(nn.Module):
         super().__init__()
         self.stride = stride
         self.use_relu = use_relu
-        self.weight = _lecun_normal((out_ch, in_ch, kernel), in_ch * kernel)
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel))
         self.bn = TFBatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         pads = tf_same_pads(x.shape[-1], self.weight.shape[-1], self.stride)
         if any(pads):
             x = F.pad(x, pads)
         x = F.conv1d(x, self.weight.to(x.dtype), stride=self.stride)
-        x = self.bn(x)
+        x = self.bn(x, train)
         return F.relu(x) if self.use_relu else x
 
 
@@ -152,13 +201,14 @@ class InceptionBlock(nn.Module):
         self.branch5_conv1e = ConvBNRelu(2 * t, 4 * t, 3)
         self.branch5_conv2e = ConvBNRelu(4 * t, 3 * t, 1, use_relu=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b1 = self.branch1_conv1a(max_pool_same(x, 3, 1))
-        b2 = self.branch2_conv0b(x)
-        b3 = self.branch3_conv1c(self.branch3_conv0c(x))
-        b4 = self.branch4_conv1d(self.branch4_conv0d(x))
-        stem = self.branch5_convstem(x)
-        b5 = self.branch5_conv2e(self.branch5_conv1e(self.branch5_conv0e(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        b1 = self.branch1_conv1a(max_pool_same(x, 3, 1), train)
+        b2 = self.branch2_conv0b(x, train)
+        b3 = self.branch3_conv1c(self.branch3_conv0c(x, train), train)
+        b4 = self.branch4_conv1d(self.branch4_conv0d(x, train), train)
+        stem = self.branch5_convstem(x, train)
+        b5 = self.branch5_conv0e(x, train)
+        b5 = self.branch5_conv2e(self.branch5_conv1e(b5, train), train)
         b5 = F.relu(stem + b5)
         return torch.cat([b1, b2, b3, b4, b5], dim=1)
 
@@ -186,32 +236,46 @@ class InceptionNet(nn.Module):
                 idx += 1
         self.out_dim = length * ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_layer1(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.conv_layer1(x, train)
         x = max_pool_same(x, 3, 2)
-        x = self.conv_layer3(self.conv_layer2(x))
+        x = self.conv_layer3(self.conv_layer2(x, train), train)
         idx = 1
         for stage, n_blocks in enumerate(self.blocks):
             if stage > 0:
                 x = max_pool_same(x, 3, 2)
             for _ in range(n_blocks):
-                x = getattr(self, f"incp_layer{idx}")(x)
+                x = getattr(self, f"incp_layer{idx}")(x, train)
                 idx += 1
         x = F.avg_pool1d(x, 7, 1, padding=3, count_include_pad=False)
         return x.transpose(1, 2).reshape(x.shape[0], -1)
 
 
+class Dense(nn.Module):
+    """A bias-free dense layer, ``weight`` [out, in] as in ``nn.Linear``."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+
+
 class JointHead(nn.Module):
-    """Joint FC head (layers.py:242-264): fc1 (same width) -> fc2, no bias;
-    computed in the input dtype.  The reference's dropouts are identity at
+    """Joint FC head (layers.py:242-273): fc1 (same width) -> dropout -> fc2
+    -> dropout, no biases, computed in the input dtype.  The dropout after
+    the logits is the reference's quirk, kept; both are identity at
     inference."""
 
     def __init__(self, in_dim: int, class_num: int = 2):
         super().__init__()
-        self.fc1 = nn.Linear(in_dim, in_dim, bias=False)
-        self.fc2 = nn.Linear(in_dim, class_num, bias=False)
+        self.fc1 = Dense(in_dim, in_dim)
+        self.fc2 = Dense(in_dim, class_num)
 
-    def forward(self, joint: torch.Tensor) -> torch.Tensor:
+    def forward(self, joint: torch.Tensor, train: bool = False,
+                keep_prob: float = 1.0,
+                generator: torch.Generator = None) -> torch.Tensor:
         dt = joint.dtype
         fc1 = F.linear(joint, self.fc1.weight.to(dt))
-        return F.linear(fc1, self.fc2.weight.to(dt))
+        if train:
+            fc1 = dropout(fc1, keep_prob, generator)
+        fc2 = F.linear(fc1, self.fc2.weight.to(dt))
+        return dropout(fc2, keep_prob, generator) if train else fc2

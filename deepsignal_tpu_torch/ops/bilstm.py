@@ -15,6 +15,17 @@ Two encoders:
   h rounded to the compute dtype before every product, products summed in
   float32, upper-layer biases in float32.  In float32 the two encoders
   agree; in bfloat16 they do not.
+
+One layer-direction:
+
+- ``lstm_layer`` = the JAX package's ``lstm_layer``, state in the input
+  dtype.
+- ``lstm_scan_plain`` = the plain version of the per-layer scan kernel
+  (``ops/cuda/lstm_scan.py``), with the Pallas scan kernel's dtype rules
+  (deepsignal_tpu/ops/pallas/lstm.py:210-222): the projection in the input
+  dtype, h/c state in float32, h rounded to the input dtype before every
+  product, products summed in float32, the output in the input dtype.  In
+  float32 it equals ``lstm_layer``.
 """
 
 from __future__ import annotations
@@ -73,6 +84,24 @@ def layer0_projection(x, kernel_fw, bias_fw, kernel_bw, bias_bw):
 def _rounded(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """float32 state rounded to the compute dtype, held as float32."""
     return h.to(dtype).float()
+
+
+def lstm_scan_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                    reverse: bool = False) -> torch.Tensor:
+    """Plain version of the per-layer scan kernel, [B, T, D] -> [B, T, H] in
+    x's dtype, indexed by absolute time (see the module docstring for its
+    dtype rules)."""
+    b, t, d = x.shape
+    h_dim = kernel.shape[1] // 4
+    dt = x.dtype
+    xp = (x.reshape(b * t, d) @ kernel[:d] + bias).reshape(b, t, 4 * h_dim)
+    w_h = kernel[d:].float()
+    h = c = x.new_zeros(b, h_dim, dtype=torch.float32)
+    outs = [None] * t
+    for ti in (range(t - 1, -1, -1) if reverse else range(t)):
+        h, c = lstm_cell_step(h, c, xp[:, ti].float() + _rounded(h, dt) @ w_h)
+        outs[ti] = h
+    return torch.stack(outs, dim=1).to(dt)
 
 
 def bilstm_encoder_fused_plain(x, kernels_fw, biases_fw, kernels_bw,

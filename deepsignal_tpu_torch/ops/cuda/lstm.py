@@ -14,6 +14,12 @@ comment in ``lstm_encoder.cu`` has the details.
 
 A CPU tensor takes the plain version (``ops.bilstm.bilstm_encoder_fused_plain``);
 a CUDA tensor launches the kernel or raises.
+
+The gradient is a ``torch.autograd.Function`` whose forward is the kernel
+and whose backward recomputes through ``ops.bilstm.bilstm_encoder_plain``
+under autograd, as the JAX package's ``custom_vjp`` recomputes through
+``bilstm_encoder_xla`` (deepsignal_tpu/ops/pallas/lstm.py:174-199).  The
+backward is no kernel: the JAX package has none either.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import ctypes
 
 import torch
 
-from ..bilstm import bilstm_encoder_fused_plain, layer0_projection
+from ..bilstm import (bilstm_encoder_fused_plain, bilstm_encoder_plain,
+                      layer0_projection)
 
 LIBRARY = "lstm_encoder"
 MAX_HIDDEN = 256
@@ -72,12 +79,53 @@ def _check(x, kernels, biases):
             raise ValueError("fused encoder inputs must be contiguous")
 
 
+def recompute_grads(fn, ctx, grad_out):
+    """Backward of an autograd Function whose forward equals ``fn`` on
+    ``ctx.saved_tensors``: run ``fn`` again under autograd and return the
+    gradient of each input that needs one (None for the others)."""
+    needs = ctx.needs_input_grad[:len(ctx.saved_tensors)]
+    with torch.enable_grad():
+        inputs = [a.detach().requires_grad_(need)
+                  for a, need in zip(ctx.saved_tensors, needs)]
+        out = fn(*inputs)
+        grads = iter(torch.autograd.grad(
+            out, [a for a in inputs if a.requires_grad], grad_out))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+def _encoder_plain(x, *params):
+    return bilstm_encoder_plain(x, params[0:3], params[3:6], params[6:9],
+                                params[9:12])
+
+
+class _FusedEncoder(torch.autograd.Function):
+    """The kernel forward, the plain encoder's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, *params):
+        ctx.save_for_backward(x, *params)
+        return _launch(x, list(params[0:3]), list(params[3:6]),
+                       list(params[6:9]), list(params[9:12]))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute_grads(_encoder_plain, ctx, grad_out)
+
+
 def bilstm_encoder_fused(x, kernels_fw, biases_fw, kernels_bw, biases_bw):
-    """Fused 3-layer bidirectional encoder [B, T, D] -> [B, 2H] in x's dtype.
+    """Fused 3-layer bidirectional encoder [B, T, D] -> [B, 2H] in x's dtype,
+    differentiable.
 
     ``kernels_*``: 3 TF-layout [(D_l + H), 4H] matrices per direction;
     ``biases_*``: 3 [4H] vectors; all in x's dtype (parameters cast to the
     compute dtype by the caller)."""
+    return _FusedEncoder.apply(x, *kernels_fw, *biases_fw, *kernels_bw,
+                               *biases_bw)
+
+
+def _launch(x, kernels_fw, biases_fw, kernels_bw, biases_bw):
+    """The forward: the plain version for a CPU tensor, the kernel for a
+    CUDA one."""
     if x.device.type == "cpu":
         return bilstm_encoder_fused_plain(x, kernels_fw, biases_fw,
                                           kernels_bw, biases_bw)

@@ -15,6 +15,14 @@ that flax wrote; ``variables_to_state_dict`` carries them into the port's
 - LSTM kernels keep the TF layout ``[(D+H), 4H]``, gate order i, j, f, o
 - ``BatchNorm_0`` scale/bias (params) and mean/var (batch_stats) <->
   ``<module>.bn.{scale,bias,mean,var}``
+
+Training adds the reference's naming and clean-up of checkpoints
+(train_model.py:33-47) and a rolling ``train_state.ckpt`` directory for
+exact resume (deepsignal_tpu/train/checkpoints.py:105-166): a checkpoint
+whose ``variables.msgpack`` is in flax's layout (so either package loads
+it), plus ``train_state.msgpack`` with the optimizer and generator state in
+the port's own tree.  A train state written by one package does not resume
+in the other.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,6 +44,45 @@ DENSE_PREFIX = "joint_model."
 
 def ckpt_name(kmer_len: int, signal_len: int, epoch: int) -> str:
     return f"bn_{kmer_len}.sn_{signal_len}.epoch_{epoch}.ckpt"
+
+
+def ckpt_regex(kmer_len: int, signal_len: int) -> re.Pattern:
+    return re.compile(r"bn_" + str(kmer_len) + r"\.sn_" + str(signal_len)
+                      + r"\.epoch_\d+\.ckpt*")
+
+
+def clean_model_dir(model_dir: str, kmer_len: int, signal_len: int) -> int:
+    """Delete pre-existing checkpoints matching the naming scheme
+    (train_model.py:37-47); returns the number removed."""
+    if not os.path.exists(model_dir):
+        os.makedirs(model_dir)
+        return 0
+    regex = ckpt_regex(kmer_len, signal_len)
+    count = 0
+    for mfile in os.listdir(model_dir):
+        if regex.match(mfile) or mfile == "checkpoint":
+            full = os.path.join(model_dir, mfile)
+            if os.path.isdir(full):
+                shutil.rmtree(full)
+            else:
+                os.remove(full)
+            count += 1
+    return count
+
+
+def latest_checkpoint(model_dir: str, kmer_len: int,
+                      signal_len: int) -> Optional[str]:
+    """Highest-epoch checkpoint in a model dir, or None."""
+    regex = ckpt_regex(kmer_len, signal_len)
+    best, best_epoch = None, -1
+    if not os.path.isdir(model_dir):
+        return None
+    for mfile in os.listdir(model_dir):
+        if regex.match(mfile):
+            epoch = int(mfile.split(".epoch_")[1].split(".")[0])
+            if epoch > best_epoch:
+                best, best_epoch = mfile, epoch
+    return os.path.join(model_dir, best) if best else None
 
 
 def save_checkpoint(path: str, cfg: ModelConfig, variables,
@@ -148,3 +197,46 @@ def state_dict_to_variables(cfg: ModelConfig, state_dict) -> dict:
     if not variables["batch_stats"]:
         del variables["batch_stats"]
     return variables
+
+
+TRAIN_STATE_DIRNAME = "train_state.ckpt"
+
+
+def save_train_state(model_dir: str, cfg: ModelConfig, variables, train_state,
+                     meta: dict) -> str:
+    """Write the rolling full-train-state checkpoint (atomic via tmp +
+    rename): a checkpoint of ``variables`` with ``meta`` (the loop's
+    json-serializable bookkeeping), plus ``train_state.msgpack`` holding
+    ``train_state``, a nested dict of numpy arrays (optimizer and generator
+    state)."""
+    path = os.path.join(model_dir, TRAIN_STATE_DIRNAME)
+    tmp = path + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    save_checkpoint(tmp, cfg, variables, meta=meta)
+    with open(os.path.join(tmp, "train_state.msgpack"), "wb") as f:
+        f.write(serialize_tree(train_state))
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.rename(tmp, path)
+    return path
+
+
+def load_train_state(model_dir: str):
+    """(cfg, variables, train_state, meta) of the rolling train-state
+    checkpoint, or None when there is none."""
+    path = os.path.join(model_dir, TRAIN_STATE_DIRNAME)
+    if not os.path.isdir(path):
+        return None
+    cfg, variables = load_checkpoint(path)
+    with open(os.path.join(path, "train_state.msgpack"), "rb") as f:
+        train_state = restore_tree(f.read())
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    return cfg, variables, train_state, meta
+
+
+def clear_train_state(model_dir: str) -> None:
+    path = os.path.join(model_dir, TRAIN_STATE_DIRNAME)
+    if os.path.isdir(path):
+        shutil.rmtree(path)

@@ -9,14 +9,20 @@ conftest (which imports JAX):
 Without a GPU every test skips.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from deepsignal_tpu_torch.core.config import ModelConfig
+from deepsignal_tpu_torch.models import layers
 from deepsignal_tpu_torch.models.deepsignal import DeepSignalNet
-from deepsignal_tpu_torch.ops.bilstm import bilstm_encoder_fused_plain
+from deepsignal_tpu_torch.ops.bilstm import (bilstm_encoder_fused_plain,
+                                             bilstm_encoder_plain,
+                                             lstm_scan_plain)
 from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
 
 # kernel vs plain version on the same card: float32 sums in another order;
 # bfloat16 h is rounded before every product, so one rounding step apart
@@ -98,3 +104,108 @@ def test_model_on_cuda_matches_cpu(cuda_device):
     # through a dozen layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+def _scan_case(seed, b, t, d, h, dtype, device):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    return mk(b, t, d, scale=1.0), mk(d + h, 4 * h, scale=0.05), \
+        mk(4 * h, scale=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", [(512, 17, 131, 256), (13, 6, 5, 98),
+                                   (3, 4, 7, 512)])
+def test_scan_kernel_matches_plain(cuda_device, dtype, reverse, shape):
+    # batch 13 and 3 are not multiples of the 4-row tile; hidden 98 is not
+    # a multiple of 4 and 512 is the largest the kernel takes
+    case = _scan_case(9, *shape, dtype, cuda_device)
+    before = lstm_layer_scan.launches
+    got = lstm_layer_scan(*case, reverse=reverse)
+    want = lstm_scan_plain(*case, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_layer_scan.launches == before + 1
+    assert got.dtype == dtype and got.shape == (*shape[:2], shape[3])
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
+    x, k, b = _scan_case(10, 2, 3, 5, 520, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        lstm_layer_scan(x, k, b)
+    x, k, b = _scan_case(10, 2, 3, 5, 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        lstm_layer_scan(x, k, b.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_layer_scan(x.transpose(0, 1).contiguous().transpose(0, 1), k, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fused", "scan"])
+def test_kernel_gradients_match_autograd_through_plain(cuda_device, kernel,
+                                                       dtype):
+    """Each Function's backward is autograd through its plain version, so
+    with a loss linear in the output the gradients are the same numbers."""
+    if kernel == "fused":
+        x, kf, bf, kb, bb = _encoder_case(11, 512, 17, 131, 256, dtype,
+                                          cuda_device)
+        arrays = [x, *kf, *bf, *kb, *bb]
+
+        def fn(x, *p):
+            return bilstm_encoder_fused(x, p[0:3], p[3:6], p[6:9], p[9:12])
+
+        def plain(x, *p):
+            return bilstm_encoder_plain(x, p[0:3], p[3:6], p[6:9], p[9:12])
+    else:
+        arrays = list(_scan_case(12, 512, 17, 131, 256, dtype, cuda_device))
+
+        def fn(*a):
+            return lstm_layer_scan(*a, reverse=True)
+
+        def plain(*a):
+            return lstm_scan_plain(*a, reverse=True)
+    grads = []
+    for f in (fn, plain):
+        args = [a.detach().clone().requires_grad_(True) for a in arrays]
+        out = f(*args)
+        weights = torch.linspace(-1, 1, out.numel(), device=cuda_device)
+        (out.float() * weights.reshape(out.shape)).sum().backward()
+        grads.append([a.grad.float() for a in args])
+    # the same arithmetic on one card: equal up to the order of sums that
+    # the libraries may change between calls
+    for got, want in zip(*grads):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_batch_encoder_launches_the_scan_kernel(cuda_device, dtype):
+    """Batch 4 is below the fused kernel's rule: the encoder takes the
+    per-layer path, six launches of the scan kernel."""
+    enc = layers.BiLSTMEncoder(131, 256, 3).to(cuda_device)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.uniform_(-0.07, 0.07)
+    x = torch.randn(4, 17, 131, device=cuda_device).to(dtype)
+    scans, fused = lstm_layer_scan.launches, bilstm_encoder_fused.launches
+    with torch.no_grad():
+        got = enc(x)
+        with mock.patch.object(layers, "lstm_layer_scan", lstm_scan_plain):
+            want = enc(x)
+    torch.cuda.synchronize()
+    assert lstm_layer_scan.launches == scans + 6
+    assert bilstm_encoder_fused.launches == fused
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0,
+                               atol=TOL[dtype])
