@@ -6,9 +6,13 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 It prints the card and builds every CUDA kernel of the port from
-``deepsignal_tpu_torch/csrc``.  It holds each kernel against its plain
-PyTorch version at the shapes of the main paths, and times the kernel, the
-plain version and one PyTorch library call that computes the same function.
+``deepsignal_tpu_torch/csrc``, with ptxas's register and spill counts (a
+spill in the fused encoder fails the run).  It holds each kernel against its
+plain PyTorch version at the shapes of the main paths (the fused encoder
+also at the call path's tail batch and at a small ragged one), prints the
+fused encoder's tile plan and the L2 weight bytes it implies, and times the
+kernel, the plain version and one PyTorch library call that computes the
+same function.
 It checks the kernels' gradients against autograd through their plain
 versions, and that a batch the fused encoder does not take runs through the
 per-layer kernel.  Then it drives the two main paths at the full width of
@@ -21,6 +25,9 @@ the default model:
   two epochs and in bfloat16 for one, after which ``run_call_mods`` scores
   the validation TSV with the best checkpoint.  One train step through the
   kernels is held against the same step through the plain versions.
+
+The bfloat16 call run is also timed stage by stage, and one forward batch of
+4096 is profiled (its top device ops and the device's idle share).
 
 Any failed check exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, it
@@ -106,18 +113,74 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
 # K1: the fused BiLSTM encoder
 
 
-def encoder_inputs(rng, dtype, device):
+def encoder_inputs(rng, dtype, device, shape=None):
+    """Seeded encoder inputs at shape (batch, steps, depth, hidden), by
+    default the call path's."""
     import torch
 
-    def t(a):
+    b, t, d, h = shape or (B, T, D, H)
+
+    def arr(a):
         return torch.from_numpy(a.astype("float32")).to(device).to(dtype)
 
-    x = t(rng.normal(0, 1, (B, T, D)))
+    x = arr(rng.normal(0, 1, (b, t, d)))
     def kernels():
-        return [t(rng.uniform(-0.07, 0.07, (d + H, 4 * H))) for d in (D, H, H)]
+        return [arr(rng.uniform(-0.07, 0.07, (d_in + h, 4 * h)))
+                for d_in in (d, h, h)]
     def biases():
-        return [t(rng.normal(0, 0.05, 4 * H)) for _ in range(3)]
+        return [arr(rng.normal(0, 0.05, 4 * h)) for _ in range(3)]
     return x, kernels(), biases(), kernels(), biases()
+
+
+# (batch, steps, depth, hidden) of the fused encoder's checks besides the
+# call batch: the call path's tail batch, and a ragged small one at H 128
+K1_CASES = ((3616, T, D, H), (8, 5, 7, 128))
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel entry: {registers, spill_stores, spill_loads, stack}} from
+    ``nvcc -Xptxas -v`` output."""
+    import re
+    funcs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w]+)", line)
+        if m:
+            name = m.group(1)
+            funcs.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            funcs[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            funcs[name]["registers"] = int(m.group(1))
+    return funcs
+
+
+def encoder_instantiations(log: str) -> dict:
+    """The fused encoder's kernels in ptxas's report, by dtype and H, each
+    with its registers and spills; fails on a spill or a missing one."""
+    found = {}
+    for name, info in ptxas_report(log).items():
+        if "lstm_encoder_kernel" not in name:
+            continue
+        dtype = "bf16" if "nv_bfloat16" in name else "f32"
+        hidden = next((h for h in (128, 256) if f"Li{h}E" in name), None)
+        found[f"{dtype}_H{hidden}"] = info
+    for key in ("bf16_H256", "bf16_H128", "f32_H256", "f32_H128"):
+        check(key in found and "registers" in found[key],
+              f"K1 {key}: not in ptxas's report")
+        info = found[key]
+        print(f"K1 {key}: {info['registers']} registers, "
+              f"{info['spill_stores']} bytes spill stores, "
+              f"{info['spill_loads']} bytes spill loads, {info['stack']} "
+              f"bytes stack", flush=True)
+        check(info["spill_stores"] == 0 and info["spill_loads"] == 0,
+              f"K1 {key}: ptxas spills")
+    return found
 
 
 def cudnn_lstm(kernels, biases, d: int):
@@ -169,40 +232,68 @@ def encoder_bound_ms(dtype_name: str, elem: int) -> tuple:
 
 
 def check_encoder(dtype_name: str, device) -> dict:
+    """K1 against its plain version at the call batch (B=4096) and at
+    K1_CASES, its tile plan and L2 weight bytes, and its time beside the
+    plain version, cuDNN and the layer-0 input product it includes."""
     import torch
 
     from deepsignal_tpu_torch.core.device import torch_dtype
-    from deepsignal_tpu_torch.ops.bilstm import bilstm_encoder_fused_plain
+    from deepsignal_tpu_torch.ops.bilstm import (bilstm_encoder_fused_plain,
+                                                 layer0_product)
+    from deepsignal_tpu_torch.ops.cuda import lstm
     from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
 
     dtype = torch_dtype(dtype_name)
+    tol = TOL[dtype_name]
+    errs = {}
     args = encoder_inputs(np.random.default_rng(17), dtype, device)
-    got = bilstm_encoder_fused(*args)
-    want = bilstm_encoder_fused_plain(*args)
-    torch.cuda.synchronize()
-    check(tuple(got.shape) == (B, 2 * H) and got.dtype == dtype,
-          f"K1 {dtype_name}: shape {tuple(got.shape)} {got.dtype}")
-    check(bool(torch.isfinite(got).all()), f"K1 {dtype_name}: non-finite")
-    err = (got.float() - want.float()).abs().max().item()
-    print(f"K1 {dtype_name}: max_abs_err {err:.3e} (tolerance "
-          f"{TOL[dtype_name]:g})", flush=True)
-    check(err <= TOL[dtype_name], f"K1 {dtype_name}: error {err} above "
-          f"{TOL[dtype_name]}")
+    for shape in ((B, T, D, H),) + K1_CASES:
+        case = args if shape == (B, T, D, H) else encoder_inputs(
+            np.random.default_rng(17), dtype, device, shape)
+        got = bilstm_encoder_fused(*case)
+        want = bilstm_encoder_fused_plain(*case)
+        torch.cuda.synchronize()
+        key = "B{}_T{}_D{}_H{}".format(*shape)
+        check(tuple(got.shape) == (shape[0], 2 * shape[3])
+              and got.dtype == dtype,
+              f"K1 {dtype_name} {key}: shape {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()),
+              f"K1 {dtype_name} {key}: non-finite")
+        errs[key] = (got.float() - want.float()).abs().max().item()
+        print(f"K1 {dtype_name} {key}: max_abs_err {errs[key]:.3e} "
+              f"(tolerance {tol:g})", flush=True)
+        check(errs[key] <= tol, f"K1 {dtype_name} {key}: error {errs[key]} "
+              f"above {tol}")
+        if case is args:
+            want_call = want
+    plan = lstm.tile_plan(B, H, dtype)
+    clusters = lstm.active_clusters(H, dtype)
+    l2_bytes = lstm.l2_weight_bytes(B, T, H, dtype)
+    waves = -(-plan["grid"][1] * plan["grid"][2] // clusters)
+    print(f"K1 {dtype_name}: tile plan {json.dumps(plan)}; {clusters} "
+          f"clusters at once, {waves} waves; L2 weight bytes per batch "
+          f"{l2_bytes} ({l2_bytes / 1e9:.2f} GB)", flush=True)
     library = cudnn_encoder(args)
-    lib_err = (library().float() - want.float()).abs().max().item()
+    lib_err = (library().float() - want_call.float()).abs().max().item()
     print(f"K1 {dtype_name}: cuDNN yardstick vs plain max_abs_err "
           f"{lib_err:.3e}", flush=True)
-    bound, bound_by = encoder_bound_ms(dtype_name, got.element_size())
+    bound, bound_by = encoder_bound_ms(dtype_name, want_call.element_size())
+    x, kf, _, kb, _ = args
     row = {"name": f"lstm_encoder_{'f32' if dtype_name == 'float32' else 'bf16'}",
            "route": "cuda",
            "source": "deepsignal_tpu_torch/csrc/lstm_encoder.cu",
            "replaces": "deepsignal_tpu/ops/pallas/lstm.py:42",
-           "launches": None, "max_abs_err": err,
+           "launches": None, "max_abs_err": max(errs.values()),
            "ms": cuda_ms(lambda: bilstm_encoder_fused(*args)),
            "plain_ms": cuda_ms(lambda: bilstm_encoder_fused_plain(*args)),
            "bound_ms": bound, "bound_by": bound_by,
-           "library_ms": cuda_ms(library)}
-    print(f"K1 {dtype_name}: kernel {row['ms']:.3f} ms, plain "
+           "library_ms": cuda_ms(library),
+           "projection_ms": cuda_ms(lambda: layer0_product(x, kf[0],
+                                                           kb[0])),
+           "cases": errs, "plan": plan, "active_clusters": clusters,
+           "waves": waves, "l2_weight_bytes": l2_bytes}
+    print(f"K1 {dtype_name}: kernel {row['ms']:.3f} ms (of it the layer-0 "
+          f"product {row['projection_ms']:.3f} ms), plain "
           f"{row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.3f} ms, "
           f"bound {bound:.3f} ms ({bound_by})", flush=True)
     return row
@@ -538,7 +629,8 @@ def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
 def time_stages(tsv, ckpt, calls) -> dict:
     """Seconds of each stage of the bfloat16 run, one at a time: checkpoint
     load onto the card, TSV parse, device forward of every batch (CUDA
-    events), call-row formatting."""
+    events), call-row formatting; and one forward batch's host-clock time,
+    device time, idle share and top device ops (``torch.profiler``)."""
     import dataclasses
 
     import torch
@@ -573,6 +665,24 @@ def time_stages(tsv, ckpt, calls) -> dict:
             for batch in batches:
                 model(*batch)
     stages["device_s"] = cuda_ms(forward_all, reps=3, warmup=1) / 1e3
+
+    def forward_one():
+        with torch.inference_mode():
+            model(*batches[0])
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward_one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
+    device_ms, top = profile_steps(forward_one, top=10)
+    stages["forward_profile"] = {
+        "batch": B, "wall_ms": wall_ms, "device_ms": device_ms,
+        "device_idle_share": 1 - device_ms / wall_ms, "top_ops": top}
+    print(f"forward profile bfloat16, one batch of {B}: "
+          f"{json.dumps(stages['forward_profile'])}", flush=True)
     p0 = np.float32([r[6] for r in calls])
     p1 = np.float32([r[7] for r in calls])
     pred = np.array([int(r[8]) for r in calls])
@@ -959,9 +1069,12 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    k1_ptxas = encoder_instantiations(reports[lstm.LIBRARY])
 
     dtypes = ("bfloat16", "float32")
     k1_rows = {d: check_encoder(d, device) for d in dtypes}
+    for d, key in (("bfloat16", "bf16"), ("float32", "f32")):
+        k1_rows[d]["ptxas"] = {h: k1_ptxas[f"{key}_H{h}"] for h in (128, 256)}
     k2_rows = {d: check_scan(d, device) for d in dtypes}
     grads = {d: check_gradients(d, device) for d in dtypes}
     for d in dtypes:

@@ -72,13 +72,27 @@ def bilstm_encoder_plain(x, kernels_fw, biases_fw, kernels_bw, biases_bw):
     return torch.cat([fw[:, -1], bw[:, 0]], dim=1)
 
 
-def layer0_projection(x, kernel_fw, bias_fw, kernel_bw, bias_bw):
-    """Layer 0's input projection of both directions in one product, in the
-    input dtype: [B, T, D] -> [B, T, 2, 4H] (fw, then bw)."""
+def layer0_product(x, kernel_fw, kernel_bw):
+    """Layer 0's input product of both directions in one matmul, in the
+    input dtype and without the bias: [B, T, D] -> [B, T, 2, 4H] (fw, then
+    bw).  On a GPU a bfloat16 depth D that is not a multiple of 8 is padded
+    with zeros, which add nothing, so that cuBLAS takes its aligned
+    kernels."""
     b, t, d = x.shape
     w_x = torch.cat([kernel_fw[:d], kernel_bw[:d]], dim=1)
-    bias = torch.cat([bias_fw, bias_bw])
-    return (x.reshape(b * t, d) @ w_x + bias).reshape(b, t, 2, -1)
+    x2 = x.reshape(b * t, d)
+    if x.is_cuda and x.dtype == torch.bfloat16 and d % 8:
+        x2 = torch.nn.functional.pad(x2, (0, 8 - d % 8))
+        w_x = torch.nn.functional.pad(w_x, (0, 0, 0, 8 - d % 8))
+    return (x2 @ w_x).reshape(b, t, 2, -1)
+
+
+def layer0_projection(x, kernel_fw, bias_fw, kernel_bw, bias_bw):
+    """Layer 0's input projection of both directions, ``x @ w_x + bias`` in
+    the input dtype as the JAX package writes it (the product rounded, then
+    the bias added): [B, T, D] -> [B, T, 2, 4H] (fw, then bw)."""
+    bias = torch.cat([bias_fw, bias_bw]).reshape(2, -1)
+    return layer0_product(x, kernel_fw, kernel_bw) + bias
 
 
 def _rounded(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library for Hopper (``sm_90a``), which is loaded with
 ``ctypes``.  Libraries go into ``build/deepsignal_tpu_torch/`` beside the
 package, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  A failed build raises.
+rebuilt and an unchanged one is reused; ptxas's report (registers, spills)
+is kept beside it.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -41,13 +42,16 @@ def library_path(name: str) -> Path:
 
 def build_libraries(names) -> dict:
     """Compile every source in ``names`` that has no current build, one
-    ``nvcc`` each, all started together.  Returns {name: ptxas report}
-    (empty for a library that was already built)."""
+    ``nvcc`` each, all started together.  Returns {name: ptxas report}, for
+    a library that was already built the report of its build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    reports = {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            reports[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -55,7 +59,6 @@ def build_libraries(names) -> dict:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    reports = {name: "" for name in names}
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -63,6 +66,7 @@ def build_libraries(names) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))

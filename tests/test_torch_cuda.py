@@ -54,9 +54,14 @@ def _encoder_case(seed, b, t, d, h, dtype, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(300, 17, 131, 256), (8, 5, 7, 128)])
+@pytest.mark.parametrize("shape", [(300, 17, 131, 256), (8, 5, 7, 128),
+                                   (3616, 17, 131, 256), (3616, 17, 131, 128),
+                                   (9, 17, 131, 256), (9, 5, 7, 128)])
 def test_encoder_kernel_matches_plain(cuda_device, dtype, shape):
-    # batch 300 is not a multiple of the kernel's 16-row tile
+    # 300, 9 and 8 are not multiples of the kernel's 64-row (bfloat16) or
+    # 32-row (float32) batch tile, and 8 and 9 leave most of one tile
+    # empty; 3616 is the call path's tail batch (a ragged bfloat16 tile);
+    # hidden 128 takes clusters of 2 CTAs, 256 clusters of 4
     case = _encoder_case(6, *shape, dtype, cuda_device)
     before = bilstm_encoder_fused.launches
     got = bilstm_encoder_fused(*case)
