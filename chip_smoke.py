@@ -7,12 +7,15 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 It prints the card and builds every CUDA kernel of the port from
 ``deepsignal_tpu_torch/csrc``, with ptxas's register and spill counts (a
-spill in the fused encoder fails the run).  It holds each kernel against its
-plain PyTorch version at the shapes of the main paths (the fused encoder
-also at the call path's tail batch and at a small ragged one), prints the
-fused encoder's tile plan and the L2 weight bytes it implies, and times the
-kernel, the plain version and one PyTorch library call that computes the
-same function.
+spill in the fused encoder or in a resident scan kernel fails the run).  It
+holds each kernel against its plain PyTorch version at the shapes of the
+main paths (the fused encoder also at the call path's tail batch and at a
+small ragged one; the scan at both train depths, a ragged tile, the call
+path's small batch and two hidden sizes of its streaming variant, checking
+which variant launched), prints each kernel's launch plan, waves and the L2
+weight bytes it implies, and times the kernel, the plain version and one
+PyTorch library call that computes the same function (the scan also in its
+parts and through its streaming variant, at both train depths).
 It checks the kernels' gradients against autograd through their plain
 versions, and that a batch the fused encoder does not take runs through the
 per-layer kernel.  Then it drives the two main paths at the full width of
@@ -23,7 +26,8 @@ the default model:
 - ``train`` through ``train()`` on a synthetic separable labelled set
   (written as TSV, converted to binary records by the port), in float32 for
   two epochs and in bfloat16 for one, after which ``run_call_mods`` scores
-  the validation TSV with the best checkpoint.  One train step through the
+  the validation TSV with the best checkpoint; every scan launch of a train
+  step must be of the resident variant.  One train step through the
   kernels is held against the same step through the plain versions.
 
 The bfloat16 call run is also timed stage by stage, and one forward batch of
@@ -303,15 +307,57 @@ def check_encoder(dtype_name: str, device) -> dict:
 # K2: the per-layer LSTM scan
 
 
-def scan_inputs(rng, d, dtype, device):
+def scan_inputs(rng, d, dtype, device, shape=None):
+    """Seeded K2 inputs (x, kernel, bias) at (batch, steps, depth, hidden),
+    by default the train path's with depth ``d``."""
     import torch
 
-    def t(a):
+    b, t, d, h = shape or (TRAIN_B, T, d, H)
+
+    def arr(a):
         return torch.from_numpy(a.astype("float32")).to(device).to(dtype)
 
-    return (t(rng.normal(0, 1, (TRAIN_B, T, d))),
-            t(rng.uniform(-0.07, 0.07, (d + H, 4 * H))),
-            t(rng.normal(0, 0.05, 4 * H)))
+    return (arr(rng.normal(0, 1, (b, t, d))),
+            arr(rng.uniform(-0.07, 0.07, (d + h, 4 * h))),
+            arr(rng.normal(0, 0.05, 4 * h)))
+
+
+# (batch, steps, depth, hidden) of K2's checks besides the two train shapes
+# (depth 131 for layer 0, 256 for layers 1-2): a ragged tile, the call
+# path's small batch (the per-layer encoder), and two hidden sizes that take
+# the streaming variant
+K2_CASES = ((9, T, H, H), (4, T, D, H), (3, 5, 7, 100), (9, 5, 16, 512))
+
+
+def scan_instantiations(log: str) -> dict:
+    """K2's resident kernels in ptxas's report, by dtype, H and batch tile,
+    each with its registers and spills; fails on a spill or a missing
+    one."""
+    import re
+
+    import torch
+
+    from deepsignal_tpu_torch.ops.cuda import lstm_scan
+    found = {}
+    for name, info in ptxas_report(log).items():
+        m = re.search(r"lstm_scan_resident_kernelI(13__nv_bfloat16|f)"
+                      r"Li(\d+)ELi(\d+)E", name)
+        if m:
+            dtype = "f32" if m.group(1) == "f" else "bf16"
+            found[f"{dtype}_H{m.group(2)}_R{m.group(3)}"] = info
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for hidden in lstm_scan.RESIDENT_HIDDEN:
+            for rows in lstm_scan.ROW_TILES[dtype]:
+                name = f"{key}_H{hidden}_R{rows}"
+                check(name in found and "registers" in found[name],
+                      f"K2 {name}: not in ptxas's report")
+                info = found[name]
+                print(f"K2 resident {name}: {info['registers']} registers, "
+                      f"{info['spill_stores']} bytes spill stores, "
+                      f"{info['spill_loads']} bytes spill loads", flush=True)
+                check(info["spill_stores"] == 0 and info["spill_loads"] == 0,
+                      f"K2 {name}: ptxas spills")
+    return found
 
 
 def cudnn_scan(x, kernel, bias, reverse):
@@ -339,61 +385,114 @@ def scan_bound_ms(d: int, dtype_name: str, elem: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def time_scan(args, dtype_name: str) -> dict:
+    """One forward K2 call at a train shape: the wrapper (input product
+    included), its parts (the input product; the resident launch alone on
+    that product), the input product and the streaming variant on the same
+    inputs (the design K2 had before, its bias pass now in the kernel), the
+    plain version and cuDNN."""
+    import torch
+
+    from deepsignal_tpu_torch.ops.bilstm import input_product, lstm_scan_plain
+    from deepsignal_tpu_torch.ops.cuda import lstm_scan
+
+    x, kernel, bias = args
+    b, t, d = x.shape
+    plan = lstm_scan.card_plan(b, H, x.dtype, x.device)
+    xp = input_product(x.reshape(b * t, d), kernel[:d]).reshape(b, t, 4 * H)
+    streaming = lstm_scan.streaming_plan(b, H)
+    library, _ = cudnn_scan(*args, False)
+    with torch.no_grad():
+        calls = {
+            "ms": lambda: lstm_scan.lstm_layer_scan(*args),
+            "product_ms": lambda: input_product(x.reshape(b * t, d),
+                                                kernel[:d]),
+            "kernel_ms": lambda: lstm_scan.scan_on_product(
+                xp, kernel[d:], bias, False, plan),
+            "streaming_ms": lambda: lstm_scan.scan_on_product(
+                input_product(x.reshape(b * t, d), kernel[:d]).reshape(
+                    b, t, 4 * H), kernel[d:], bias, False, streaming),
+            "plain_ms": lambda: lstm_scan_plain(*args),
+            "library_ms": library}
+        # in turns, so that a drift of the card's clock hits all alike
+        times = {k: [] for k in calls}
+        for _ in range(2):
+            for k, fn in calls.items():
+                times[k].append(cuda_ms(fn))
+    res = {k: float(np.median(v)) for k, v in times.items()}
+    res["bound_ms"], res["bound_by"] = scan_bound_ms(d, dtype_name,
+                                                     x.element_size())
+    return res
+
+
 def check_scan(dtype_name: str, device) -> dict:
-    """K2 against its plain version at B=512, T=17, H=256 for D=131 (layer
-    0) and D=256 (layers 1-2), both directions.  The row's times are those
-    of the D=256 forward call, four of the six launches of a train step."""
+    """K2 against its plain version at the train shapes (B=512, T=17,
+    H=256, D=131 for layer 0 and D=256 for layers 1-2) and at K2_CASES,
+    both directions, each through the variant ``scan_plan`` gives; its plan,
+    waves and L2 weight bytes at B=512; and its times at both train shapes.
+    The row's ``ms`` is that of the D=256 call (four of the six launches of
+    a train step), ``ms_d131`` that of layer 0's."""
     import torch
 
     from deepsignal_tpu_torch.core.device import torch_dtype
     from deepsignal_tpu_torch.ops.bilstm import lstm_scan_plain
+    from deepsignal_tpu_torch.ops.cuda import lstm_scan
     from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
 
     dtype = torch_dtype(dtype_name)
+    tol = TOL[dtype_name]
     rng = np.random.default_rng(19)
-    shapes = {}
-    for d in (D, H):
-        args = scan_inputs(rng, d, dtype, device)
+    shapes, timed = {}, {}
+    for shape in ((TRAIN_B, T, D, H), (TRAIN_B, T, H, H)) + K2_CASES:
+        b, t, d, h = shape
+        args = scan_inputs(rng, d, dtype, device, shape)
+        variant = ("resident" if h in lstm_scan.RESIDENT_HIDDEN
+                   else "streaming")
         for reverse in (False, True):
+            before = dict(lstm_layer_scan.launches_by_variant)
             with torch.no_grad():
                 got = lstm_layer_scan(*args, reverse=reverse)
                 want = lstm_scan_plain(*args, reverse=reverse)
             torch.cuda.synchronize()
-            key = f"D{d}_{'bw' if reverse else 'fw'}"
-            check(tuple(got.shape) == (TRAIN_B, T, H) and got.dtype == dtype,
+            key = f"B{b}_T{t}_D{d}_H{h}_{'bw' if reverse else 'fw'}"
+            launched = {k: n - before[k]
+                        for k, n in lstm_layer_scan.launches_by_variant.items()}
+            check(launched[variant] == 1 and sum(launched.values()) == 1,
+                  f"K2 {dtype_name} {key}: launched {launched}, want one "
+                  f"{variant}")
+            check(tuple(got.shape) == (b, t, h) and got.dtype == dtype,
                   f"K2 {dtype_name} {key}: {tuple(got.shape)} {got.dtype}")
             check(bool(torch.isfinite(got).all()),
                   f"K2 {dtype_name} {key}: non-finite")
             err = (got.float() - want.float()).abs().max().item()
-            library, to_time_order = cudnn_scan(*args, reverse)
-            lib_err = (to_time_order(library()).float()
-                       - want.float()).abs().max().item()
-            print(f"K2 {dtype_name} {key}: max_abs_err {err:.3e} (tolerance "
-                  f"{TOL[dtype_name]:g}); cuDNN yardstick vs plain "
-                  f"{lib_err:.3e}", flush=True)
-            check(err <= TOL[dtype_name], f"K2 {dtype_name} {key}: error "
-                  f"{err} above {TOL[dtype_name]}")
-            shapes[key] = {"max_abs_err": err}
-            if reverse:
-                continue
-
-            def kernel_call():
-                with torch.no_grad():
-                    lstm_layer_scan(*args, reverse=False)
-
-            def plain_call():
-                with torch.no_grad():
-                    lstm_scan_plain(*args, reverse=False)
-            bound, bound_by = scan_bound_ms(d, dtype_name, got.element_size())
-            shapes[key].update(ms=cuda_ms(kernel_call),
-                               plain_ms=cuda_ms(plain_call),
-                               library_ms=cuda_ms(library), bound_ms=bound,
-                               bound_by=bound_by)
-            print(f"K2 {dtype_name} {key}: kernel {shapes[key]['ms']:.3f} "
-                  f"ms, plain {shapes[key]['plain_ms']:.3f} ms, cuDNN "
-                  f"{shapes[key]['library_ms']:.3f} ms, bound {bound:.4f} ms "
-                  f"({bound_by})", flush=True)
-    row = shapes[f"D{H}_fw"]
+            msg = ""
+            if b == TRAIN_B:
+                library, to_time_order = cudnn_scan(*args, reverse)
+                lib_err = (to_time_order(library()).float()
+                           - want.float()).abs().max().item()
+                msg = f"; cuDNN yardstick vs plain {lib_err:.3e}"
+            print(f"K2 {dtype_name} {key} ({variant}): max_abs_err "
+                  f"{err:.3e} (tolerance {tol:g}){msg}", flush=True)
+            check(err <= tol, f"K2 {dtype_name} {key}: error {err} above "
+                  f"{tol}")
+            shapes[key] = {"max_abs_err": err, "variant": variant}
+        if b == TRAIN_B:
+            timed[d] = time_scan(args, dtype_name)
+            print(f"K2 {dtype_name} D{d}: {json.dumps(timed[d])}", flush=True)
+    clusters = lstm_scan.active_clusters(H, dtype)
+    plan = lstm_scan.scan_plan(TRAIN_B, H, dtype, clusters)
+    at_once = lstm_scan.active_clusters(H, dtype, plan["rows"])
+    waves = -(-plan["grid"][1] // at_once)
+    l2_bytes = lstm_scan.l2_weight_bytes(plan, T, H, dtype)
+    l2_streaming = lstm_scan.l2_weight_bytes(
+        lstm_scan.streaming_plan(TRAIN_B, H), T, H, dtype)
+    print(f"K2 {dtype_name}: scan plan at B={TRAIN_B} {json.dumps(plan)}; "
+          f"{at_once} clusters at once, {waves} wave(s); L2 weight bytes "
+          f"per launch {l2_bytes} ({l2_bytes / 1e6:.1f} MB; the streaming "
+          f"variant {l2_streaming / 1e9:.2f} GB)", flush=True)
+    check(plan["variant"] == "resident" and waves == 1,
+          f"K2 {dtype_name}: B={TRAIN_B} takes {waves} waves")
+    row = timed[H]
     return {"name": f"lstm_scan_{'f32' if dtype_name == 'float32' else 'bf16'}",
             "route": "cuda", "source": "deepsignal_tpu_torch/csrc/lstm_scan.cu",
             "replaces": "deepsignal_tpu/ops/pallas/lstm.py:202",
@@ -401,7 +500,14 @@ def check_scan(dtype_name: str, device) -> dict:
             "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shapes": shapes}
+            "library_ms": row["library_ms"],
+            "ms_d131": timed[D]["ms"], "plain_ms_d131": timed[D]["plain_ms"],
+            "bound_ms_d131": timed[D]["bound_ms"],
+            "library_ms_d131": timed[D]["library_ms"],
+            "times": {f"D{d}": v for d, v in timed.items()},
+            "plan": plan, "active_clusters": at_once, "waves": waves,
+            "l2_weight_bytes": l2_bytes,
+            "l2_weight_bytes_streaming": l2_streaming, "cases": shapes}
 
 
 # --------------------------------------------------------------------------
@@ -482,13 +588,17 @@ def check_small_batch(dtype_name: str, device) -> None:
             p.uniform_(-0.07, 0.07, generator=gen)
     x = torch.randn(4, T, D, device=device, generator=gen).to(dtype)
     scans, fused = lstm_layer_scan.launches, bilstm_encoder_fused.launches
+    resident = lstm_layer_scan.launches_by_variant["resident"]
     with torch.no_grad():
         got = enc(x)
         torch.cuda.synchronize()
         check(lstm_layer_scan.launches - scans == 6
-              and bilstm_encoder_fused.launches == fused,
+              and lstm_layer_scan.launches_by_variant["resident"] - resident
+              == 6 and bilstm_encoder_fused.launches == fused,
               f"batch 4 {dtype_name}: {lstm_layer_scan.launches - scans} K2 "
-              f"and {bilstm_encoder_fused.launches - fused} K1 launches")
+              f"({lstm_layer_scan.launches_by_variant['resident'] - resident}"
+              f" resident) and {bilstm_encoder_fused.launches - fused} K1 "
+              f"launches")
         with mock.patch.object(layers, "lstm_layer_scan", lstm_scan_plain):
             want = enc(x)
         err = (got.float() - want.float()).abs().max().item()
@@ -498,7 +608,7 @@ def check_small_batch(dtype_name: str, device) -> None:
                       for side in ("fw", "bw") for leaf in ("kernel", "bias")]
             ref = bilstm_encoder_plain(x, *params)
             err = max(err, (got - ref).abs().max().item())
-    print(f"batch 4 {dtype_name}: 6 K2 launches, max_abs_err {err:.3e} "
+    print(f"batch 4 {dtype_name}: 6 resident K2 launches, max_abs_err {err:.3e} "
           f"(tolerance {TOL[dtype_name]:g})", flush=True)
     check(err <= TOL[dtype_name], f"batch 4 {dtype_name}: error {err}")
 
@@ -804,12 +914,14 @@ def run_train(dtype_name: str, epochs: int, files: dict, work: str) -> tuple:
     model_dir = os.path.join(work, f"model_{dtype_name}")
     log_dir = os.path.join(work, f"logs_{dtype_name}")
     bilstm_encoder_fused.launches = lstm_layer_scan.launches = 0
+    lstm_layer_scan.launches_by_variant = {"resident": 0, "streaming": 0}
     t0 = time.time()
     summary = train(files["train_bin"], files["valid_bin"], model_dir, log_dir,
                     cfg, tcfg, is_binary=True, trainer=trainer)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     k1, k2 = bilstm_encoder_fused.launches, lstm_layer_scan.launches
+    k2_resident = lstm_layer_scan.launches_by_variant["resident"]
     steps, losses = trainer.train_steps, trainer.losses
     valid_batches = -(-VALID_ROWS // TRAIN_B)
     with open(os.path.join(log_dir, "train.txt")) as f:
@@ -821,6 +933,8 @@ def run_train(dtype_name: str, epochs: int, files: dict, work: str) -> tuple:
     check(steps == summary["epochs_run"] * (TRAIN_ROWS // TRAIN_B),
           f"{tag}: {steps} steps in {summary['epochs_run']} epochs")
     check(k2 == 6 * steps, f"{tag}: K2 launched {k2} times for {steps} steps")
+    check(k2_resident == k2, f"{tag}: {k2_resident} of {k2} K2 launches of "
+          f"the resident variant")
     check(sweeps > 0 and k1 == trainer.eval_steps == valid_batches * sweeps,
           f"{tag}: K1 launched {k1} times, {trainer.eval_steps} eval steps, "
           f"{sweeps} sweeps of {valid_batches} batches")
@@ -840,6 +954,7 @@ def run_train(dtype_name: str, epochs: int, files: dict, work: str) -> tuple:
     res = {"dtype": dtype_name, "steps": steps, "epochs": summary["epochs_run"],
            "seconds": seconds, "wall_sites_per_s": steps * TRAIN_B / seconds,
            "sweeps": sweeps, "k1_launches": k1, "k2_launches": k2,
+           "k2_resident_launches": k2_resident,
            "loss_first4": first, "loss_last4": last,
            "best_accuracy": summary["best_accuracy"]}
     print(f"{tag}: {json.dumps(res)}", flush=True)
@@ -1012,10 +1127,13 @@ def check_step_parity(dtype_name: str, device) -> dict:
         return loss.item(), torch.autograd.grad(loss, params)
 
     scans = lstm_layer_scan.launches
+    resident = lstm_layer_scan.launches_by_variant["resident"]
     loss_k, grads_k = step()
-    check(lstm_layer_scan.launches - scans == 6,
+    check(lstm_layer_scan.launches - scans == 6
+          and lstm_layer_scan.launches_by_variant["resident"] - resident == 6,
           f"step parity {dtype_name}: {lstm_layer_scan.launches - scans} K2 "
-          f"launches")
+          f"launches, {lstm_layer_scan.launches_by_variant['resident'] - resident}"
+          f" resident")
     with mock.patch.object(layers, "lstm_layer_scan", lstm_scan_plain):
         loss_p, grads_p = step()
     flat_k, flat_p = (torch.cat([g.float().flatten() for g in grads])
@@ -1070,12 +1188,16 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     k1_ptxas = encoder_instantiations(reports[lstm.LIBRARY])
+    k2_ptxas = scan_instantiations(reports[lstm_scan.LIBRARY])
 
     dtypes = ("bfloat16", "float32")
     k1_rows = {d: check_encoder(d, device) for d in dtypes}
     for d, key in (("bfloat16", "bf16"), ("float32", "f32")):
         k1_rows[d]["ptxas"] = {h: k1_ptxas[f"{key}_H{h}"] for h in (128, 256)}
     k2_rows = {d: check_scan(d, device) for d in dtypes}
+    for d, key in (("bfloat16", "bf16"), ("float32", "f32")):
+        k2_rows[d]["ptxas"] = {k: v for k, v in k2_ptxas.items()
+                               if k.startswith(key)}
     grads = {d: check_gradients(d, device) for d in dtypes}
     for d in dtypes:
         check_small_batch(d, device)

@@ -72,19 +72,24 @@ def bilstm_encoder_plain(x, kernels_fw, biases_fw, kernels_bw, biases_bw):
     return torch.cat([fw[:, -1], bw[:, 0]], dim=1)
 
 
+def input_product(x2, w_x):
+    """[N, D] @ [D, G] in the input dtype.  On a GPU a bfloat16 depth D that
+    is not a multiple of 8 is padded with zeros, which add nothing, so that
+    cuBLAS takes its aligned kernels."""
+    d = x2.shape[1]
+    if x2.is_cuda and x2.dtype == torch.bfloat16 and d % 8:
+        x2 = torch.nn.functional.pad(x2, (0, 8 - d % 8))
+        w_x = torch.nn.functional.pad(w_x, (0, 0, 0, 8 - d % 8))
+    return x2 @ w_x
+
+
 def layer0_product(x, kernel_fw, kernel_bw):
     """Layer 0's input product of both directions in one matmul, in the
     input dtype and without the bias: [B, T, D] -> [B, T, 2, 4H] (fw, then
-    bw).  On a GPU a bfloat16 depth D that is not a multiple of 8 is padded
-    with zeros, which add nothing, so that cuBLAS takes its aligned
-    kernels."""
+    bw)."""
     b, t, d = x.shape
     w_x = torch.cat([kernel_fw[:d], kernel_bw[:d]], dim=1)
-    x2 = x.reshape(b * t, d)
-    if x.is_cuda and x.dtype == torch.bfloat16 and d % 8:
-        x2 = torch.nn.functional.pad(x2, (0, 8 - d % 8))
-        w_x = torch.nn.functional.pad(w_x, (0, 0, 0, 8 - d % 8))
-    return (x2 @ w_x).reshape(b, t, 2, -1)
+    return input_product(x.reshape(b * t, d), w_x).reshape(b, t, 2, -1)
 
 
 def layer0_projection(x, kernel_fw, bias_fw, kernel_bw, bias_bw):

@@ -125,17 +125,26 @@ def _scan_case(seed, b, t, d, h, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("shape", [(512, 17, 131, 256), (13, 6, 5, 98),
+@pytest.mark.parametrize("shape", [(512, 17, 131, 256), (512, 17, 256, 256),
+                                   (9, 17, 256, 256), (4, 17, 131, 256),
+                                   (33, 3, 8, 128), (13, 6, 5, 98),
+                                   (3, 5, 7, 100), (9, 5, 16, 512),
                                    (3, 4, 7, 512)])
 def test_scan_kernel_matches_plain(cuda_device, dtype, reverse, shape):
-    # batch 13 and 3 are not multiples of the 4-row tile; hidden 98 is not
-    # a multiple of 4 and 512 is the largest the kernel takes
+    # the train shapes (layer 0 and layers 1-2), a ragged tile, the
+    # call_mods small-batch path and H 128 take the resident kernel;
+    # hidden 98 and 100 (not multiples of 4 and 64) and 512 (the largest
+    # either kernel takes) the streaming one, batches 13, 9 and 3 leave a
+    # ragged tile
     case = _scan_case(9, *shape, dtype, cuda_device)
+    variant = "resident" if shape[3] in (128, 256) else "streaming"
     before = lstm_layer_scan.launches
+    by_variant = lstm_layer_scan.launches_by_variant[variant]
     got = lstm_layer_scan(*case, reverse=reverse)
     want = lstm_scan_plain(*case, reverse=reverse)
     torch.cuda.synchronize()
     assert lstm_layer_scan.launches == before + 1
+    assert lstm_layer_scan.launches_by_variant[variant] == by_variant + 1
     assert got.dtype == dtype and got.shape == (*shape[:2], shape[3])
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=0,
@@ -204,12 +213,14 @@ def test_small_batch_encoder_launches_the_scan_kernel(cuda_device, dtype):
             p.uniform_(-0.07, 0.07)
     x = torch.randn(4, 17, 131, device=cuda_device).to(dtype)
     scans, fused = lstm_layer_scan.launches, bilstm_encoder_fused.launches
+    resident = lstm_layer_scan.launches_by_variant["resident"]
     with torch.no_grad():
         got = enc(x)
         with mock.patch.object(layers, "lstm_layer_scan", lstm_scan_plain):
             want = enc(x)
     torch.cuda.synchronize()
     assert lstm_layer_scan.launches == scans + 6
+    assert lstm_layer_scan.launches_by_variant["resident"] == resident + 6
     assert bilstm_encoder_fused.launches == fused
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=0,
