@@ -425,6 +425,40 @@ def time_scan(args, dtype_name: str) -> dict:
     return res
 
 
+def time_tiles(dtype, device) -> dict:
+    """The resident kernel alone at each built batch tile, at the call
+    path's small batch (4) and the training batch, with the waves each
+    tile takes there, and the tile ``card_plan`` picks."""
+    import torch
+
+    from deepsignal_tpu_torch.ops.bilstm import input_product
+    from deepsignal_tpu_torch.ops.cuda import lstm_scan
+
+    rng = np.random.default_rng(29)
+    tiles = lstm_scan.ROW_TILES[dtype]
+    at_once = {r: lstm_scan.active_clusters(H, dtype, r) for r in tiles}
+    res = {}
+    for b in (4, TRAIN_B):
+        x, kernel, bias = scan_inputs(rng, D, dtype, device, (b, T, D, H))
+        xp = input_product(x.reshape(b * T, D), kernel[:D]).reshape(
+            b, T, 4 * H)
+        plans = {r: lstm_scan.resident_plan(b, H, dtype, r) for r in tiles}
+        times = {r: [] for r in tiles}
+        with torch.no_grad():
+            for _ in range(2):  # in turns, as in time_scan
+                for r, plan in plans.items():
+                    times[r].append(cuda_ms(lambda: lstm_scan.scan_on_product(
+                        xp, kernel[D:], bias, False, plan)))
+        ms = {r: float(np.median(v)) for r, v in times.items()}
+        picked = lstm_scan.card_plan(b, H, dtype, x.device)["rows"]
+        res[f"B{b}"] = {
+            "ms": {str(r): t for r, t in ms.items()},
+            "waves": {str(r): -(-p["grid"][1] // at_once[r])
+                      for r, p in plans.items()},
+            "picked": picked, "picked_fastest": ms[picked] == min(ms.values())}
+    return res
+
+
 def check_scan(dtype_name: str, device) -> dict:
     """K2 against its plain version at the train shapes (B=512, T=17,
     H=256, D=131 for layer 0 and D=256 for layers 1-2) and at K2_CASES,
@@ -488,10 +522,13 @@ def check_scan(dtype_name: str, device) -> dict:
         lstm_scan.streaming_plan(TRAIN_B, H), T, H, dtype)
     print(f"K2 {dtype_name}: scan plan at B={TRAIN_B} {json.dumps(plan)}; "
           f"{at_once} clusters at once, {waves} wave(s); L2 weight bytes "
-          f"per launch {l2_bytes} ({l2_bytes / 1e6:.1f} MB; the streaming "
-          f"variant {l2_streaming / 1e9:.2f} GB)", flush=True)
+          f"per launch by the plan {l2_bytes} ({l2_bytes / 1e6:.1f} MB; the "
+          f"streaming variant {l2_streaming / 1e9:.2f} GB)", flush=True)
     check(plan["variant"] == "resident" and waves == 1,
           f"K2 {dtype_name}: B={TRAIN_B} takes {waves} waves")
+    tiles = time_tiles(dtype, device)
+    print(f"K2 {dtype_name}: resident kernel alone by batch tile "
+          f"{json.dumps(tiles)}", flush=True)
     row = timed[H]
     return {"name": f"lstm_scan_{'f32' if dtype_name == 'float32' else 'bf16'}",
             "route": "cuda", "source": "deepsignal_tpu_torch/csrc/lstm_scan.cu",
@@ -504,10 +541,9 @@ def check_scan(dtype_name: str, device) -> dict:
             "ms_d131": timed[D]["ms"], "plain_ms_d131": timed[D]["plain_ms"],
             "bound_ms_d131": timed[D]["bound_ms"],
             "library_ms_d131": timed[D]["library_ms"],
-            "times": {f"D{d}": v for d, v in timed.items()},
+            "times": {f"D{d}": v for d, v in timed.items()}, "tiles": tiles,
             "plan": plan, "active_clusters": at_once, "waves": waves,
-            "l2_weight_bytes": l2_bytes,
-            "l2_weight_bytes_streaming": l2_streaming, "cases": shapes}
+            "cases": shapes}
 
 
 # --------------------------------------------------------------------------

@@ -30,19 +30,18 @@
 // rounding to the storage type), which is the plain version's
 // `x @ W_x + b` bit for bit, and saves the wrapper an elementwise pass.
 //
-//   bfloat16: U 64, a cluster of 4 CTAs at H 256 (2 at H 128), BT 16, 32 or
-//     64 rows.  Shared memory of one CTA at H 256: W_h slice [256][256] bf16
+//   bfloat16: U 64, a cluster of 4 CTAs at H 256 (2 at H 128), BT 16 or 32
+//     rows.  Shared memory of one CTA at H 256: W_h slice [256][256] bf16
 //     128 KB, h [2][BT][256] bf16 (32 KB at BT 32), one mbarrier:
-//     163,848 bytes at BT 32, 196,616 at BT 64, of the 232,448 a CTA may
-//     have.  Products on the tensor cores, mma.sync.m16n8k16 bf16 -> f32:
+//     163,848 bytes at BT 32, of the 232,448 a CTA may have.  Products on the tensor cores, mma.sync.m16n8k16 bf16 -> f32:
 //     warp w takes all BT rows (BT/16 m16 tiles) and units [8w, 8w + 8) of
 //     each gate (4 n8 tiles); A (h) by ldmatrix.x4, B (W_h) by
 //     ldmatrix.x4.trans, both from buffers whose 16-byte chunks are permuted
 //     by (row & 7).  Per step a CTA at BT 32 does 32 x 256 x 256 MACs: 1,024
 //     mma, 128 per warp.
-//   float32: U 32, a cluster of 8 CTAs at H 256 (4 at H 128), BT 32, 40 or
-//     48 rows.  W_h slice [256][128] f32 128 KB, h [2][BT][256] f32 (80 KB at
-//     BT 40): 213,000 bytes at BT 40, 229,384 at BT 48.  Full FP32 on the
+//   float32: U 32, a cluster of 8 CTAs at H 256 (4 at H 128), BT 32 or 40
+//     rows.  W_h slice [256][128] f32 128 KB, h [2][BT][256] f32 (80 KB at
+//     BT 40): 213,000 bytes at BT 40.  Full FP32 on the
 //     FMA units (no TF32: float32 is the parity path).  The W_h load picks
 //     the columns so that a unit's four gates are one float4 ([K][unit]
 //     [gate]); warp w takes rows [BT/8 w, +BT/8), lane l unit l.  Per K-row a
@@ -51,12 +50,15 @@
 //     step a CTA at BT 40 does 40 x 256 x 128 = 1.3 M FMA: ~5.5 us at 128
 //     FMA per clock.
 //
-// The tile is the smallest of the three whose clusters the card runs in one
-// wave (`cudaOccupancyMaxActiveClusters`, ds_lstm_scan_active_clusters_*):
-// a serial scan that takes a second wave takes twice as long.  An H100 SXM
+// The tile is the smaller of the two when the card runs all its clusters in
+// one wave (`cudaOccupancyMaxActiveClusters`, ds_lstm_scan_active_clusters_*),
+// else the larger: a serial scan that takes a second wave takes twice as
+// long.  An H100 SXM
 // runs 30 clusters of 4 and 15 of 8 at once, so the training batch of 512
 // takes bfloat16 BT 32 (16 clusters of 4, 64 SMs; BT 16 would need 32) and
-// float32 BT 40 (13 clusters of 8, 104 SMs; BT 32 would need 16).
+// float32 BT 40 (13 clusters of 8, 104 SMs; BT 32 would need 16).  The
+// smaller tiles serve the call path's batches below 8, where a cluster does
+// half (bfloat16) or four fifths (float32) of the larger tile's product.
 //
 // What bounds it.  The recurrent products are 4.6 GFLOP per launch at B 512,
 // T 17, H 256, 5 us at the tensor cores' peak and 68 us on the FMA units;
@@ -106,11 +108,11 @@ constexpr float FORGET_BIAS = 1.0f;
 template <typename T> struct Tiles;
 template <> struct Tiles<bf16> {
   static constexpr int UNITS = 64;
-  static constexpr int R0 = 16, R1 = 32, R2 = 64;
+  static constexpr int R0 = 16, R1 = 32;
 };
 template <> struct Tiles<float> {
   static constexpr int UNITS = 32;
-  static constexpr int R0 = 32, R1 = 40, R2 = 48;
+  static constexpr int R0 = 32, R1 = 40;
 };
 
 // The shape of one resident instantiation: storage type T, hidden H, BT
@@ -638,7 +640,6 @@ int by_shape(int H, int rows, F&& f) {
   auto tile = [&](auto hc) -> int {
     if (rows == R::R0) return f(hc, std::integral_constant<int, R::R0>{});
     if (rows == R::R1) return f(hc, std::integral_constant<int, R::R1>{});
-    if (rows == R::R2) return f(hc, std::integral_constant<int, R::R2>{});
     return (int)cudaErrorInvalidValue;
   };
   if (H == 128) return tile(std::integral_constant<int, 128>{});

@@ -55,14 +55,11 @@ THREADS = 256           # threads of a resident CTA
 SMEM_LIMIT = 232_448    # dynamic shared memory one CTA may have on Hopper
 RESIDENT_HIDDEN = (128, 256)
 # hidden units per resident CTA, and the batch tiles (rows per cluster) the
-# resident kernel is built for, per dtype
+# resident kernel is built for, per dtype: the larger runs the training
+# batch of 512 in one wave, the smaller the call path's batches below 8
 UNITS_PER_CTA = {torch.float32: 32, torch.bfloat16: 64}
-ROW_TILES = {torch.float32: (32, 40, 48), torch.bfloat16: (16, 32, 64)}
+ROW_TILES = {torch.float32: (32, 40), torch.bfloat16: (16, 32)}
 STREAM_ROWS = 4         # batch rows per streaming CTA
-# clusters of the resident kernel an H100 SXM (132 SMs) runs at once, by
-# CTAs per cluster, as cudaOccupancyMaxActiveClusters reports there; the
-# wrapper asks the card itself (``active_clusters``)
-H100_ACTIVE_CLUSTERS = {2: 66, 4: 30, 8: 15}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ELEM = {torch.float32: 4, torch.bfloat16: 2}
@@ -88,33 +85,45 @@ def streaming_plan(batch: int, hidden: int) -> dict:
             "smem_bytes": STREAM_ROWS * ((hidden + 3) & ~3) * 4}
 
 
-def scan_plan(batch: int, hidden: int, dtype: torch.dtype,
-              clusters_at_once: int | None = None) -> dict:
-    """The launch the wrapper hands the kernel: the variant, batch rows per
-    cluster, CTAs per cluster, grid (cluster rank, batch tile), threads,
-    hidden units and gate columns per CTA, the bytes of W_h a resident CTA
-    holds, and dynamic shared-memory bytes per CTA.
-
-    H 128 and 256 take the resident kernel, with the smallest batch tile
-    whose clusters fit in one wave of ``clusters_at_once`` (by default the
-    H100's count; the largest tile when none fits).  A resident CTA's
-    shared memory holds its [H, 4 units] slice of W_h and h of the tile
-    [2][rows][H], both in the storage dtype, and one 8-byte mbarrier.
-    Every other H takes the streaming kernel."""
-    if hidden not in RESIDENT_HIDDEN:
-        return streaming_plan(batch, hidden)
+def resident_plan(batch: int, hidden: int, dtype: torch.dtype,
+                  rows: int) -> dict:
+    """The resident kernel's launch with ``rows`` batch rows per cluster: a
+    CTA's shared memory holds its [H, 4 units] slice of W_h and h of the
+    tile [2][rows][H], both in the storage dtype, and one 8-byte
+    mbarrier."""
     elem = _ELEM[dtype]
     units = UNITS_PER_CTA[dtype]
     cluster = hidden // units
-    at_once = clusters_at_once or H100_ACTIVE_CLUSTERS[cluster]
-    tiles = ROW_TILES[dtype]
-    rows = next((r for r in tiles if -(-batch // r) <= at_once), tiles[-1])
     cols = 4 * units
     return {"variant": "resident", "rows": rows, "cluster": cluster,
             "grid": (cluster, -(-batch // rows)), "threads": THREADS,
             "units": units, "cols": cols,
             "w_slice_bytes": hidden * cols * elem,
             "smem_bytes": (hidden * cols + 2 * rows * hidden) * elem + 8}
+
+
+def scan_plan(batch: int, hidden: int, dtype: torch.dtype,
+              clusters_at_once: int | None) -> dict:
+    """The launch the wrapper hands the kernel: the variant, batch rows per
+    cluster, CTAs per cluster, grid (cluster rank, batch tile), threads,
+    hidden units and gate columns per CTA, the bytes of W_h a resident CTA
+    holds, and dynamic shared-memory bytes per CTA.
+
+    H 128 and 256 take the resident kernel, with the smallest batch tile
+    whose clusters fit in one wave of ``clusters_at_once`` (the card's
+    ``active_clusters``; the largest tile when none fits).  Every other H
+    takes the streaming kernel, and ``clusters_at_once`` is not read."""
+    if hidden not in RESIDENT_HIDDEN:
+        return streaming_plan(batch, hidden)
+    if (clusters_at_once or 0) < 1:
+        raise RuntimeError(
+            f"the card runs no cluster of the resident lstm scan kernel at "
+            f"hidden {hidden}, {dtype} (cudaOccupancyMaxActiveClusters gave "
+            f"{clusters_at_once})")
+    tiles = ROW_TILES[dtype]
+    rows = next((r for r in tiles if -(-batch // r) <= clusters_at_once),
+                tiles[-1])
+    return resident_plan(batch, hidden, dtype, rows)
 
 
 _plan = functools.lru_cache(maxsize=256)(scan_plan)

@@ -1,9 +1,8 @@
 """The per-layer scan kernel's launch plan, on the CPU: the variant and
 shape ``ops/cuda/lstm_scan.py::scan_plan`` hands the kernel for every
-batch and hidden size, the L2 weight bytes it implies, how the resident
-CTAs split W_h, and the identity the kernel's bias add relies on.  The
-kernel itself is held against its plain version on the card, in
-tests/test_torch_cuda.py."""
+batch and hidden size, the L2 weight bytes it implies, and the identity the
+kernel's bias add relies on.  The kernel itself is held against its plain
+version on the card, in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -16,13 +15,23 @@ torch.set_num_threads(1)
 
 DTYPES = [torch.float32, torch.bfloat16]
 ELEM = {torch.float32: 4, torch.bfloat16: 2}
+# clusters of the resident kernel an H100 SXM (132 SMs) runs at once, by
+# CTAs per cluster, as cudaOccupancyMaxActiveClusters reports there
+H100_ACTIVE_CLUSTERS = {2: 66, 4: 30, 8: 15}
+
+
+def h100_plan(batch, hidden, dtype):
+    units = lstm_scan.UNITS_PER_CTA[dtype]
+    at_once = (H100_ACTIVE_CLUSTERS[hidden // units]
+               if hidden in lstm_scan.RESIDENT_HIDDEN else None)
+    return lstm_scan.scan_plan(batch, hidden, dtype, at_once), at_once
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hidden", [16, 100, 128, 256, 512])
 @pytest.mark.parametrize("batch", [1, 4, 9, 300, 512, 4096])
 def test_scan_plan_fits_every_shape(batch, hidden, dtype):
-    plan = lstm_scan.scan_plan(batch, hidden, dtype)
+    plan, at_once = h100_plan(batch, hidden, dtype)
     elem = ELEM[dtype]
     rows, cluster = plan["rows"], plan["cluster"]
     assert plan["smem_bytes"] <= lstm_scan.SMEM_LIMIT == 232_448
@@ -50,7 +59,6 @@ def test_scan_plan_fits_every_shape(batch, hidden, dtype):
     # bfloat16 rows are whole m16 tiles, float32 rows 8 per warp
     assert rows % (16 if dtype == torch.bfloat16 else 8) == 0
     # the smallest built tile whose clusters run in one wave
-    at_once = lstm_scan.H100_ACTIVE_CLUSTERS[cluster]
     fits = [r for r in lstm_scan.ROW_TILES[dtype] if -(-batch // r) <= at_once]
     assert rows == (fits[0] if fits else lstm_scan.ROW_TILES[dtype][-1])
 
@@ -59,21 +67,20 @@ def test_scan_plan_fits_every_shape(batch, hidden, dtype):
 def test_scan_plan_at_the_train_shape(dtype):
     """B 512, H 256: one wave, with the tile and the shared-memory sum the
     kernel's source note gives."""
-    plan = lstm_scan.scan_plan(512, 256, dtype)
+    plan, at_once = h100_plan(512, 256, dtype)
     want = {torch.bfloat16: (32, 4, (4, 16), 163_848),
             torch.float32: (40, 8, (8, 13), 213_000)}[dtype]
     assert (plan["rows"], plan["cluster"], plan["grid"],
             plan["smem_bytes"]) == want
     assert plan["w_slice_bytes"] == 128 * 1024
-    at_once = lstm_scan.H100_ACTIVE_CLUSTERS[plan["cluster"]]
     assert plan["grid"][1] <= at_once
 
 
 @pytest.mark.parametrize("dtype, at_once, rows", [
     (torch.bfloat16, 32, 16), (torch.bfloat16, 16, 32),
-    (torch.bfloat16, 8, 64), (torch.bfloat16, 4, 64),
-    (torch.float32, 16, 32), (torch.float32, 11, 48),
-    (torch.float32, 10, 48)])
+    (torch.bfloat16, 8, 32), (torch.bfloat16, 4, 32),
+    (torch.float32, 16, 32), (torch.float32, 13, 40),
+    (torch.float32, 10, 40)])
 def test_scan_plan_follows_the_cards_cluster_count(dtype, at_once, rows):
     # B 512 in one wave of `at_once` clusters if a built tile allows it,
     # else the largest tile
@@ -86,7 +93,7 @@ def test_l2_weight_bytes_at_the_train_shape(dtype):
     bfloat16, 13 x 1 MB in float32 at B 512, H 256; the streaming kernel
     reads it in every CTA at every step, 128 x 17 x |W_h|."""
     w_h = 256 * 1024 * ELEM[dtype]
-    plan = lstm_scan.scan_plan(512, 256, dtype)
+    plan, _ = h100_plan(512, 256, dtype)
     clusters = {torch.bfloat16: 16, torch.float32: 13}[dtype]
     assert lstm_scan.l2_weight_bytes(plan, 17, 256, dtype) == clusters * w_h
     assert lstm_scan.l2_weight_bytes(plan, 17, 256, dtype) <= 16 * 2 ** 20
@@ -97,21 +104,14 @@ def test_l2_weight_bytes_at_the_train_shape(dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hidden", [128, 256])
-def test_resident_slices_partition_w_h(hidden, dtype):
-    """CTA k of a cluster holds units [U k, U k + U) of each gate: the
-    clusters' column sets are disjoint and together every column of W_h
-    once, in the order the kernel's slice keeps them (gate, then unit)."""
-    plan = lstm_scan.scan_plan(512, hidden, dtype)
-    units = plan["units"]
-    cols = [g * hidden + k * units + u for k in range(plan["cluster"])
-            for g in range(4) for u in range(units)]
-    assert len(cols) == plan["cluster"] * plan["cols"]
-    assert sorted(cols) == list(range(4 * hidden))
-    w_h = torch.arange(hidden * 4 * hidden).reshape(hidden, 4 * hidden)
-    slices = w_h[:, cols].reshape(hidden, plan["cluster"], plan["cols"])
-    restored = torch.empty_like(w_h)
-    restored[:, cols] = slices.reshape(hidden, -1)
-    assert torch.equal(restored, w_h)
+@pytest.mark.parametrize("at_once", [0, None])
+def test_scan_plan_refuses_a_card_without_room(at_once, hidden, dtype):
+    """A card that runs no resident cluster (count 0) gets an error that
+    names the cause, not a plan; the streaming variant needs no count."""
+    with pytest.raises(RuntimeError, match="runs no cluster"):
+        lstm_scan.scan_plan(512, hidden, dtype, at_once)
+    assert lstm_scan.scan_plan(512, 100, dtype, at_once)["variant"] == (
+        "streaming")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
