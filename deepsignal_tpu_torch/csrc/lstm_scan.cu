@@ -33,7 +33,8 @@
 //   bfloat16: U 64, a cluster of 4 CTAs at H 256 (2 at H 128), BT 16 or 32
 //     rows.  Shared memory of one CTA at H 256: W_h slice [256][256] bf16
 //     128 KB, h [2][BT][256] bf16 (32 KB at BT 32), one mbarrier:
-//     163,848 bytes at BT 32, of the 232,448 a CTA may have.  Products on the tensor cores, mma.sync.m16n8k16 bf16 -> f32:
+//     163,848 bytes at BT 32, of the 232,448 a CTA may have.  Products on
+//     the tensor cores, mma.sync.m16n8k16 bf16 -> f32:
 //     warp w takes all BT rows (BT/16 m16 tiles) and units [8w, 8w + 8) of
 //     each gate (4 n8 tiles); A (h) by ldmatrix.x4, B (W_h) by
 //     ldmatrix.x4.trans, both from buffers whose 16-byte chunks are permuted
@@ -41,10 +42,9 @@
 //     mma, 128 per warp.
 //   float32: U 32, a cluster of 8 CTAs at H 256 (4 at H 128), BT 32 or 40
 //     rows.  W_h slice [256][128] f32 128 KB, h [2][BT][256] f32 (80 KB at
-//     BT 40): 213,000 bytes at BT 40.  Full FP32 on the
-//     FMA units (no TF32: float32 is the parity path).  The W_h load picks
-//     the columns so that a unit's four gates are one float4 ([K][unit]
-//     [gate]); warp w takes rows [BT/8 w, +BT/8), lane l unit l.  Per K-row a
+//     BT 40): 213,000 bytes at BT 40.  Full FP32 on the FMA units (no
+//     TF32: float32 is the parity path).  The W_h load picks the columns
+//     so that a unit's four gates are one float4 ([K][unit][gate]); warp w takes rows [BT/8 w, +BT/8), lane l unit l.  Per K-row a
 //     thread loads one float4 of W_h (a warp 512 contiguous bytes), per four
 //     K-rows one float4 of h per row (one address for the whole warp).  Per
 //     step a CTA at BT 40 does 40 x 256 x 128 = 1.3 M FMA: ~5.5 us at 128
@@ -53,10 +53,10 @@
 // The tile is the smaller of the two when the card runs all its clusters in
 // one wave (`cudaOccupancyMaxActiveClusters`, ds_lstm_scan_active_clusters_*),
 // else the larger: a serial scan that takes a second wave takes twice as
-// long.  An H100 SXM
-// runs 30 clusters of 4 and 15 of 8 at once, so the training batch of 512
-// takes bfloat16 BT 32 (16 clusters of 4, 64 SMs; BT 16 would need 32) and
-// float32 BT 40 (13 clusters of 8, 104 SMs; BT 32 would need 16).  The
+// long.  An H100 SXM runs 30 clusters of 4 and 15 of 8 at once, so the
+// training batch of 512 takes bfloat16 BT 32 (16 clusters of 4, 64 SMs;
+// BT 16 would need 32) and float32 BT 40 (13 clusters of 8, 104 SMs; BT 32
+// would need 16).  The
 // smaller tiles serve the call path's batches below 8, where a cluster does
 // half (bfloat16) or four fifths (float32) of the larger tile's product.
 //
