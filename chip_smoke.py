@@ -7,31 +7,44 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 It prints the card and builds every CUDA kernel of the port from
 ``deepsignal_tpu_torch/csrc``, with ptxas's register and spill counts (a
-spill in the fused encoder or in a resident scan kernel fails the run).  It
+spill in the fused encoder or in a resident scan kernel fails the run), and
+beside them the host C++ code (the feature-TSV parser and the call-row
+formatter) with the host compiler, whose version it prints.  It
 holds each kernel against its plain PyTorch version at the shapes of the
 main paths (the fused encoder also at the call path's tail batch and at a
 small ragged one; the scan at both train depths, a ragged tile, the call
 path's small batch and two hidden sizes of its streaming variant, checking
-which variant launched), prints each kernel's launch plan, waves and the L2
-weight bytes it implies, and times the kernel, the plain version and one
-PyTorch library call that computes the same function (the scan also in its
-parts and through its streaming variant, at both train depths).
+which variant launched; both also at depth 3, the input of denoise's
+RNN-only model), prints each kernel's launch plan, waves and the L2 weight
+bytes it implies, and times the kernel, the plain version and one PyTorch
+library call that computes the same function (the scan also in its parts
+and through its streaming variant, at both train depths).
 It checks the kernels' gradients against autograd through their plain
 versions, and that a batch the fused encoder does not take runs through the
-per-layer kernel.  Then it drives the two main paths at the full width of
-the default model:
+per-layer kernel.  Then it drives the three main paths at full width:
 
 - ``call_mods`` end to end through ``run_call_mods``, with random seeded
-  weights, on a synthetic feature TSV, in bfloat16 and in float32;
+  weights, on a synthetic feature TSV, in bfloat16 and in float32: the TSV
+  is parsed by the native parser in the background reader process and the
+  calls formatted by the native formatter, each counted;
 - ``train`` through ``train()`` on a synthetic separable labelled set
   (written as TSV, converted to binary records by the port), in float32 for
   two epochs and in bfloat16 for one, after which ``run_call_mods`` scores
   the validation TSV with the best checkpoint; every scan launch of a train
   step must be of the resident variant.  One train step through the
-  kernels is held against the same step through the plain versions.
+  kernels is held against the same step through the plain versions;
+- ``denoise`` through ``denoise()`` with ``DenoiseConfig``'s RNN-only model
+  on a synthetic labelled set whose positives are 30% mislabelled, one
+  iteration of one round of one epoch: every scan launch of a train step
+  resident, one encoder launch per scoring batch, every line scored, and
+  fewer mislabelled positives kept than true ones.
 
 The bfloat16 call run is also timed stage by stage, and one forward batch of
-4096 is profiled (its top device ops and the device's idle share).
+4096 is profiled (its top device ops and the device's idle share).  The
+native parser is held against its plain version array for array and bit for
+bit on the call TSV, the native formatter against its plain version byte
+for byte on the calls, and both are timed beside their plain versions, with
+the background reader's start.
 
 Any failed check exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, it
@@ -40,8 +53,11 @@ exits non-zero at once.  Scratch files go to ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -55,12 +71,25 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 B, T, D, H = 4096, 17, 131, 256
 N_ROWS = 20000          # synthetic feature rows: 4 full device batches + tail
 SITES_PER_READ = 40
+READS_PER_BATCH = 50    # run_call_mods's f5_batch_num: 10 read batches
 # the train path: batch 512 (TrainConfig's default), 12 train batches and 2
 # validation batches (the second one padded), a sweep every 6 steps
 TRAIN_B = 512
 TRAIN_ROWS = 12 * TRAIN_B
 VALID_ROWS = 1000
 DISPLAY_STEP = 6
+# denoise: the RNN-only model's encoder input is the 3 per-base features;
+# 4000 rows split into halves of 2000, each 3 batches of 512 and a tail of
+# 464 rows; 30% of the positives carry the signal of negatives
+D_DENOISE = 3
+DENOISE_ROWS = 4000
+DENOISE_TAIL = DENOISE_ROWS // 2 % TRAIN_B
+DENOISE_NOISY = 0.3
+# a denoise round trains 4 steps a half; prob_1 of a true positive passes
+# score_cf 0.5 only when the classes sit far apart: on the CPU, this
+# configuration kept 98% of the true positives at a shift of 3 (unit noise),
+# 39% at 2 and 1% at 1, and none of the mislabelled ones
+DENOISE_SHIFT = 3.0
 # kernel vs plain, max abs: float32 sums in another order; in bfloat16 the
 # output may sit one bfloat16 rounding (2**-8 near 1) apart
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -144,7 +173,6 @@ K1_CASES = ((3616, T, D, H), (8, 5, 7, 128))
 def ptxas_report(log: str) -> dict:
     """{kernel entry: {registers, spill_stores, spill_loads, stack}} from
     ``nvcc -Xptxas -v`` output."""
-    import re
     funcs, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -214,7 +242,7 @@ def cudnn_encoder(args):
     x, bw on x reversed in time).  A yardstick only."""
     import torch
     x, kf, bf, kb, bb = args
-    fw, bw = cudnn_lstm(kf, bf, D), cudnn_lstm(kb, bb, D)
+    fw, bw = cudnn_lstm(kf, bf, x.shape[2]), cudnn_lstm(kb, bb, x.shape[2])
     xr = x.flip(1)
 
     def run():
@@ -223,13 +251,15 @@ def cudnn_encoder(args):
     return run
 
 
-def encoder_bound_ms(dtype_name: str, elem: int) -> tuple:
-    """(bound_ms, bound_by) of the wrapper's work: layer-0 projection of
-    both directions, then 17 steps x 3 layers x 2 directions of products."""
-    flops = (2 * B * T * D * 8 * H                       # projection
-             + 2 * T * B * 2 * 4 * H * (H + 2 * H + 2 * H))  # recurrence
-    weights = 2 * ((D + H) + 4 * H) * 4 * H + 2 * 3 * 4 * H
-    nbytes = (B * T * D + weights + B * 2 * H) * elem
+def encoder_bound_ms(dtype_name: str, elem: int, b: int = B,
+                     d: int = D) -> tuple:
+    """(bound_ms, bound_by) of the wrapper's work at batch b and depth d:
+    layer-0 projection of both directions, then 17 steps x 3 layers x 2
+    directions of products."""
+    flops = (2 * b * T * d * 8 * H                       # projection
+             + 2 * T * b * 2 * 4 * H * (H + 2 * H + 2 * H))  # recurrence
+    weights = 2 * ((d + H) + 4 * H) * 4 * H + 2 * 3 * 4 * H
+    nbytes = (b * T * d + weights + b * 2 * H) * elem
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -303,6 +333,55 @@ def check_encoder(dtype_name: str, device) -> dict:
     return row
 
 
+def check_encoder_d3(dtype_name: str, device) -> dict:
+    """K1 at denoise's scoring shapes: depth 3 (the RNN-only model's three
+    per-base features), the batch of 512 and the tail's 464 rows, against
+    its plain version, one launch each; its time at B=512 beside the plain
+    version, cuDNN and the bound.  Returns the keys it adds to K1's row."""
+    import torch
+
+    from deepsignal_tpu_torch.core.device import torch_dtype
+    from deepsignal_tpu_torch.ops.bilstm import bilstm_encoder_fused_plain
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+
+    dtype = torch_dtype(dtype_name)
+    tol = TOL[dtype_name]
+    rng = np.random.default_rng(43)
+    errs = {}
+    for b in (TRAIN_B, DENOISE_TAIL):
+        shape = (b, T, D_DENOISE, H)
+        case = encoder_inputs(rng, dtype, device, shape)
+        before = bilstm_encoder_fused.launches
+        got = bilstm_encoder_fused(*case)
+        want = bilstm_encoder_fused_plain(*case)
+        torch.cuda.synchronize()
+        key = "B{}_T{}_D{}_H{}".format(*shape)
+        check(bilstm_encoder_fused.launches == before + 1,
+              f"K1 {dtype_name} {key}: the kernel did not launch once")
+        check(tuple(got.shape) == (b, 2 * H) and got.dtype == dtype
+              and bool(torch.isfinite(got).all()),
+              f"K1 {dtype_name} {key}: {tuple(got.shape)} {got.dtype}")
+        errs[key] = (got.float() - want.float()).abs().max().item()
+        print(f"K1 {dtype_name} {key}: max_abs_err {errs[key]:.3e} "
+              f"(tolerance {tol:g})", flush=True)
+        check(errs[key] <= tol, f"K1 {dtype_name} {key}: error {errs[key]} "
+              f"above {tol}")
+        if b == TRAIN_B:
+            args = case
+    library = cudnn_encoder(args)
+    bound, bound_by = encoder_bound_ms(dtype_name, args[0].element_size(),
+                                       TRAIN_B, D_DENOISE)
+    row = {"ms_d3": cuda_ms(lambda: bilstm_encoder_fused(*args)),
+           "plain_ms_d3": cuda_ms(lambda: bilstm_encoder_fused_plain(*args)),
+           "library_ms_d3": cuda_ms(library), "bound_ms_d3": bound,
+           "bound_by_d3": bound_by, "cases_d3": errs}
+    print(f"K1 {dtype_name} D{D_DENOISE} B{TRAIN_B}: kernel "
+          f"{row['ms_d3']:.3f} ms, plain {row['plain_ms_d3']:.3f} ms, cuDNN "
+          f"{row['library_ms_d3']:.3f} ms, bound {bound:.4f} ms ({bound_by})",
+          flush=True)
+    return row
+
+
 # --------------------------------------------------------------------------
 # K2: the per-layer LSTM scan
 
@@ -333,7 +412,6 @@ def scan_instantiations(log: str) -> dict:
     """K2's resident kernels in ptxas's report, by dtype, H and batch tile,
     each with its registers and spills; fails on a spill or a missing
     one."""
-    import re
 
     import torch
 
@@ -461,11 +539,12 @@ def time_tiles(dtype, device) -> dict:
 
 def check_scan(dtype_name: str, device) -> dict:
     """K2 against its plain version at the train shapes (B=512, T=17,
-    H=256, D=131 for layer 0 and D=256 for layers 1-2) and at K2_CASES,
-    both directions, each through the variant ``scan_plan`` gives; its plan,
-    waves and L2 weight bytes at B=512; and its times at both train shapes.
-    The row's ``ms`` is that of the D=256 call (four of the six launches of
-    a train step), ``ms_d131`` that of layer 0's."""
+    H=256, D=131 for layer 0 and D=256 for layers 1-2, and D=3 for layer 0
+    of denoise's RNN-only model) and at K2_CASES, both directions, each
+    through the variant ``scan_plan`` gives; its plan, waves and L2 weight
+    bytes at B=512; and its times at the three train shapes.  The row's
+    ``ms`` is that of the D=256 call (four of the six launches of a train
+    step), ``ms_d131`` and ``ms_d3`` those of layer 0's."""
     import torch
 
     from deepsignal_tpu_torch.core.device import torch_dtype
@@ -477,7 +556,8 @@ def check_scan(dtype_name: str, device) -> dict:
     tol = TOL[dtype_name]
     rng = np.random.default_rng(19)
     shapes, timed = {}, {}
-    for shape in ((TRAIN_B, T, D, H), (TRAIN_B, T, H, H)) + K2_CASES:
+    for shape in ((TRAIN_B, T, D, H), (TRAIN_B, T, H, H),
+                  (TRAIN_B, T, D_DENOISE, H)) + K2_CASES:
         b, t, d, h = shape
         args = scan_inputs(rng, d, dtype, device, shape)
         variant = ("resident" if h in lstm_scan.RESIDENT_HIDDEN
@@ -541,6 +621,11 @@ def check_scan(dtype_name: str, device) -> dict:
             "ms_d131": timed[D]["ms"], "plain_ms_d131": timed[D]["plain_ms"],
             "bound_ms_d131": timed[D]["bound_ms"],
             "library_ms_d131": timed[D]["library_ms"],
+            "ms_d3": timed[D_DENOISE]["ms"],
+            "plain_ms_d3": timed[D_DENOISE]["plain_ms"],
+            "bound_ms_d3": timed[D_DENOISE]["bound_ms"],
+            "bound_by_d3": timed[D_DENOISE]["bound_by"],
+            "library_ms_d3": timed[D_DENOISE]["library_ms"],
             "times": {f"D{d}": v for d, v in timed.items()}, "tiles": tiles,
             "plan": plan, "active_clusters": at_once, "waves": waves,
             "cases": shapes}
@@ -733,20 +818,42 @@ def write_features(path: str, cfg, rng) -> None:
 
 
 def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
+    """``run_call_mods`` on the TSV: K1 launched once per device batch, the
+    native parser once per read batch (in the reader process), the native
+    formatter and read counter once per device-sized block; the calls in
+    input order, finite, summing to 1, with mixed labels."""
+    from deepsignal_tpu_torch.io import native
     from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
     from deepsignal_tpu_torch.runtime.caller import run_call_mods
 
     bilstm_encoder_fused.launches = 0
+    native.parse_feature_block.calls = native.format_call_block.calls = 0
+    native.count_read_runs.calls = 0
+    printed = io.StringIO()
     t0 = time.time()
-    n = run_call_mods(tsv, ckpt, out_path, batch_size=B,
-                      compute_dtype=dtype_name)
+    with contextlib.redirect_stdout(printed):
+        n = run_call_mods(tsv, ckpt, out_path, batch_size=B,
+                          compute_dtype=dtype_name)
     seconds = time.time() - t0
+    print(printed.getvalue(), end="", flush=True)
+    # the meter's line: its clock starts after the checkpoint is loaded
+    meter = re.search(r"\[call_mods\] \d+ sites, .* in ([\d.]+)s \| (\d+) "
+                      r"sites/s", printed.getvalue())
+    check(meter is not None, f"{dtype_name}: no meter line")
     launches = bilstm_encoder_fused.launches
+    host_calls = {"parse": native.parse_feature_block.calls,
+                  "format": native.format_call_block.calls,
+                  "count_read_runs": native.count_read_runs.calls}
     device_batches = -(-N_ROWS // B)
+    read_batches = -(-(N_ROWS // SITES_PER_READ) // READS_PER_BATCH)
     check(n == N_ROWS, f"{dtype_name}: {n} calls for {N_ROWS} rows")
     check(launches == device_batches,
           f"{dtype_name}: K1 launched {launches} times for {device_batches} "
           f"device batches")
+    check(host_calls == {"parse": read_batches, "format": device_batches,
+                         "count_read_runs": device_batches},
+          f"{dtype_name}: native calls {host_calls}, want {read_batches} "
+          f"parses and {device_batches} of each of the others")
     with open(out_path) as f:
         rows = [line.rstrip("\n").split("\t") for line in f]
     with open(tsv) as f:
@@ -767,21 +874,88 @@ def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
     res = {"dtype": dtype_name, "rows": n, "reads": reads,
            "seconds": seconds, "sites_per_s": n / seconds,
            "reads_per_s": reads / seconds, "launches": launches,
-           "label_1_share": float(labels.mean())}
+           "meter_seconds": float(meter.group(1)),
+           "meter_sites_per_s": int(meter.group(2)),
+           "native_calls": host_calls, "label_1_share": float(labels.mean())}
     print(f"e2e {dtype_name}: {json.dumps(res)}", flush=True)
     return res, p, labels, rows
 
 
-def time_stages(tsv, ckpt, calls) -> dict:
+def check_native_host(tsv: str, calls_path: str) -> dict:
+    """The native parser against its plain version on the whole call TSV,
+    array for array and bit for bit; the native formatter against its plain
+    version on the calls ``run_call_mods`` wrote, byte for byte (and equal
+    to that file); their times per row; and the background reader's start
+    (its first batch) and its whole stream."""
+    from deepsignal_tpu_torch.io import calls_codec, feature_codec
+    from deepsignal_tpu_torch.runtime.pipeline import \
+        stream_file_feature_batches
+
+    with open(tsv, "rb") as f:
+        block = f.read()
+    lines = block.decode().splitlines(True)
+    t0 = time.perf_counter()
+    fb = feature_codec.parse_feature_bytes(block)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = feature_codec.parse_feature_lines_plain(lines)
+    parse_plain_s = time.perf_counter() - t0
+    check(fb.sampleinfo == plain.sampleinfo, "native parse: sampleinfo")
+    for name in ("kmers", "means", "stds", "lens", "signals", "labels"):
+        a, b = getattr(fb, name), getattr(plain, name)
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a.view(np.uint32) if a.dtype == np.float32
+                                   else a,
+                                   b.view(np.uint32) if b.dtype == np.float32
+                                   else b))
+        check(same, f"native parse: {name} differs from the plain version")
+
+    with open(calls_path, "rb") as f:
+        calls = f.read()
+    rows = [line.split("\t") for line in calls.decode().splitlines()]
+    p0 = np.array([r[6] for r in rows], dtype=np.float32)
+    p1 = np.array([r[7] for r in rows], dtype=np.float32)
+    pred = np.array([int(r[8]) for r in rows], dtype=np.int64)
+    t0 = time.perf_counter()
+    got = calls_codec.format_call_block(fb.sampleinfo, p0, p1, pred, fb.kmers)
+    format_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = calls_codec.format_call_block_plain(fb.sampleinfo, p0, p1, pred,
+                                               fb.kmers)
+    format_plain_s = time.perf_counter() - t0
+    check(got == want, "native call rows differ from the plain version")
+    check(got == calls, "native call rows differ from run_call_mods's file")
+
+    t0 = time.perf_counter()
+    stream = stream_file_feature_batches(tsv, READS_PER_BATCH)
+    n = len(next(stream))
+    reader_start_s = time.perf_counter() - t0
+    n += sum(len(b) for b in stream)
+    reader_s = time.perf_counter() - t0
+    check(n == N_ROWS, f"reader: {n} rows of {N_ROWS}")
+    res = {"parse_us_per_row": parse_s / N_ROWS * 1e6,
+           "parse_plain_us_per_row": parse_plain_s / N_ROWS * 1e6,
+           "format_us_per_row": format_s / N_ROWS * 1e6,
+           "format_plain_us_per_row": format_plain_s / N_ROWS * 1e6,
+           "reader_start_s": reader_start_s, "reader_s": reader_s}
+    print(f"native host: {json.dumps(res)}", flush=True)
+    return res
+
+
+def time_stages(tsv, ckpt, calls, native: dict) -> dict:
     """Seconds of each stage of the bfloat16 run, one at a time: checkpoint
-    load onto the card, TSV parse, device forward of every batch (CUDA
-    events), call-row formatting; and one forward batch's host-clock time,
+    load onto the card, TSV parse (native and, through the same read
+    grouping, plain), device forward of every batch (CUDA events), call-row
+    formatting (native and plain); and one forward batch's host-clock time,
     device time, idle share and top device ops (``torch.profiler``)."""
     import dataclasses
+    from unittest import mock
 
     import torch
 
-    from deepsignal_tpu_torch.io.calls_codec import format_call_block
+    from deepsignal_tpu_torch.io import feature_codec
+    from deepsignal_tpu_torch.io.calls_codec import (format_call_block,
+                                                     format_call_block_plain)
     from deepsignal_tpu_torch.io.feature_codec import (
         FeatureBatch, iter_feature_batches_by_read)
     from deepsignal_tpu_torch.models.deepsignal import model_from_state_dict
@@ -798,8 +972,20 @@ def time_stages(tsv, ckpt, calls) -> dict:
     torch.cuda.synchronize()
     stages["load_s"] = time.time() - t0
     t0 = time.time()
-    fb = FeatureBatch.concat(list(iter_feature_batches_by_read(tsv, 50)))
+    fb = FeatureBatch.concat(list(iter_feature_batches_by_read(
+        tsv, READS_PER_BATCH)))
     stages["parse_s"] = time.time() - t0
+
+    # the same grouping with the pure-Python parse the native one replaced
+    def parse_plain(block):
+        return feature_codec.parse_feature_lines_plain(
+            block.decode().splitlines(True))
+
+    with mock.patch.object(feature_codec, "parse_feature_bytes", parse_plain):
+        t0 = time.time()
+        FeatureBatch.concat(list(iter_feature_batches_by_read(
+            tsv, READS_PER_BATCH)))
+        stages["parse_plain_s"] = time.time() - t0
     batches = []
     for i in range(0, len(fb), B):
         batches.append([torch.from_numpy(_pad(a[i:i + B], B)).cuda() for a in
@@ -835,6 +1021,10 @@ def time_stages(tsv, ckpt, calls) -> dict:
     t0 = time.time()
     format_call_block(fb.sampleinfo, p0, p1, pred, fb.kmers)
     stages["format_s"] = time.time() - t0
+    t0 = time.time()
+    format_call_block_plain(fb.sampleinfo, p0, p1, pred, fb.kmers)
+    stages["format_plain_s"] = time.time() - t0
+    stages.update(native)
     print(f"stages bfloat16: {json.dumps(stages)}", flush=True)
     return stages
 
@@ -883,24 +1073,33 @@ def check_first_batch(dtype_name, tsv, ckpt, probs, labels) -> None:
 # train
 
 
-def write_labelled_features(path: str, n: int, cfg, rng) -> None:
-    """A separable labelled set: the label shifts the k-mer means and the
-    central signals by +-0.5 (unit noise), so a few steps learn it."""
+def write_labelled_features(path: str, n: int, cfg, rng,
+                            noisy_frac: float = 0.0,
+                            shift: float = 0.5) -> set:
+    """A separable labelled set: the signal of a row shifts the k-mer means
+    and the central signals by +-``shift`` (unit noise), so a few steps
+    learn it.  A ``noisy_frac`` of the positives carry the signal of
+    negatives; returns the indexes of those mislabelled rows (their pos is
+    1000 + index)."""
     from deepsignal_tpu_torch.io.feature_codec import format_feature_row
     k, s = cfg.kmer_len, cfg.cent_signals_len
     bases = np.array(list("ACGT"))
+    noisy = set()
     with open(path, "w") as f:
         for i in range(n):
             label = int(rng.integers(0, 2))
-            shift = 0.5 if label else -0.5
+            if noisy_frac and label and rng.random() < noisy_frac:
+                noisy.add(i)
+            sign = 1 if label and i not in noisy else -1
             kmer = bases[rng.integers(0, 4, k)]
             kmer[k // 2:k // 2 + 2] = ["C", "G"]
             f.write(format_feature_row(
                 "chr1", 1000 + i, "+", 1000 + i,
                 f"read{i // SITES_PER_READ:05d}", "t", "".join(kmer),
-                rng.normal(shift, 1, k), np.abs(rng.normal(0.3, 0.1, k)),
-                rng.integers(3, 30, k),
-                np.around(rng.normal(shift, 1, s), 6), label) + "\n")
+                rng.normal(sign * shift, 1, k),
+                np.abs(rng.normal(0.3, 0.1, k)), rng.integers(3, 30, k),
+                np.around(rng.normal(sign * shift, 1, s), 6), label) + "\n")
+    return noisy
 
 
 def recording_trainer(model_cfg, train_cfg):
@@ -933,7 +1132,6 @@ def recording_trainer(model_cfg, train_cfg):
 def run_train(dtype_name: str, epochs: int, files: dict, work: str) -> tuple:
     """``train()`` at full width with keep_prob 0.5, with the checks on its
     kernel launches, losses and logs; returns (result, trainer)."""
-    import re
 
     import torch
 
@@ -1027,6 +1225,107 @@ def score_checkpoint(dtype_name: str, ckpt: str, files: dict, work: str,
     check(accuracy >= min_accuracy, f"{tag}: accuracy {accuracy} below "
           f"{min_accuracy}")
     return {"rows": n, "k1_launches": k1, "accuracy": accuracy}
+
+
+def run_denoise(work: str, rng) -> dict:
+    """``denoise()`` with ``DenoiseConfig``'s defaults (RNN-only model at
+    full width, batch 512, keep_prob 0.5) cut to one iteration of one round
+    of one epoch, on DENOISE_ROWS labelled rows of which DENOISE_NOISY of
+    the positives are mislabelled.  Checks: six resident K2 launches per
+    train step, one K1 launch per scoring batch, a probability for every
+    line, both labels in the output and no intermediate file left, and a
+    smaller kept share of the mislabelled positives than of the true ones."""
+    from unittest import mock
+
+    import torch
+
+    from deepsignal_tpu_torch.core.config import DenoiseConfig, ModelConfig
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
+    from deepsignal_tpu_torch.train import denoise as denoise_mod
+    from deepsignal_tpu_torch.train.trainer import Trainer
+
+    dcfg = DenoiseConfig(iterations=1, rounds=1, epoch_num=1)
+    cfg = ModelConfig(is_cnn=dcfg.is_cnn, is_rnn=dcfg.is_rnn,
+                      is_base=dcfg.is_base)  # what denoise() builds
+    folder = os.path.join(work, "denoise")
+    os.makedirs(folder, exist_ok=True)
+    for name in os.listdir(folder):
+        os.remove(os.path.join(folder, name))
+    path = os.path.join(folder, "train.tsv")
+    noisy = write_labelled_features(path, DENOISE_ROWS, cfg, rng,
+                                    noisy_frac=DENOISE_NOISY,
+                                    shift=DENOISE_SHIFT)
+    with open(path) as f:
+        labels = [int(line.rsplit("\t", 1)[1]) for line in f]
+    steps = {"train": 0, "eval": 0}
+
+    class CountingTrainer(Trainer):
+        def train_on_batch_async(self, batch, lr):
+            steps["train"] += 1
+            return super().train_on_batch_async(batch, lr)
+
+        def eval_on_batch_async(self, batch):
+            steps["eval"] += 1
+            return super().eval_on_batch_async(batch)
+
+    scored = []
+    train_1time = denoise_mod.train_1time
+
+    def recording_train_1time(train_file, valid_file, valid_lidxs, *a, **kw):
+        probs = train_1time(train_file, valid_file, valid_lidxs, *a, **kw)
+        scored.append((list(valid_lidxs), probs))
+        return probs
+
+    bilstm_encoder_fused.launches = lstm_layer_scan.launches = 0
+    lstm_layer_scan.launches_by_variant = {"resident": 0, "streaming": 0}
+    t0 = time.time()
+    with mock.patch.object(denoise_mod, "Trainer", CountingTrainer), \
+            mock.patch.object(denoise_mod, "train_1time",
+                              recording_train_1time):
+        out = denoise_mod.denoise(path, None, dcfg, seed=47)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    k1, k2 = bilstm_encoder_fused.launches, lstm_layer_scan.launches
+    k2_resident = lstm_layer_scan.launches_by_variant["resident"]
+    half = DENOISE_ROWS // 2
+    want_steps = 2 * -(-half // dcfg.batch_size)
+    check(steps == {"train": want_steps, "eval": want_steps},
+          f"denoise: {steps} steps, want {want_steps} train and eval")
+    check(k2 == 6 * steps["train"] and k2_resident == k2,
+          f"denoise: K2 launched {k2} times ({k2_resident} resident) for "
+          f"{steps['train']} train steps")
+    check(k1 == steps["eval"], f"denoise: K1 launched {k1} times for "
+          f"{steps['eval']} scoring batches")
+    check(len(scored) == 2 and all(sorted(p) == sorted(lidxs)
+                                   for lidxs, p in scored)
+          and sorted(i for lidxs, _ in scored for i in lidxs)
+          == list(range(DENOISE_ROWS))
+          and all(np.isfinite(list(p.values())).all() for _, p in scored),
+          "denoise: not every line got one finite probability")
+    check(sorted(os.listdir(folder)) == ["train.denoise1.tsv", "train.tsv"]
+          and out == os.path.join(folder, "train.denoise1.tsv"),
+          f"denoise: files left {sorted(os.listdir(folder))}, output {out}")
+    with open(out) as f:
+        kept = [line.split("\t") for line in f]
+    out_labels = [int(r[-1]) for r in kept]
+    kept_pos = {int(r[1]) - 1000 for r in kept if int(r[-1]) == 1}
+    true_pos = {i for i, lab in enumerate(labels) if lab == 1} - noisy
+    share_true = len(kept_pos & true_pos) / len(true_pos)
+    share_noisy = len(kept_pos & noisy) / len(noisy)
+    check(0 < sum(out_labels) < len(out_labels),
+          f"denoise: output labels {sum(out_labels)} of {len(out_labels)}")
+    check(share_noisy < share_true,
+          f"denoise: kept {share_noisy:.3f} of the mislabelled positives, "
+          f"{share_true:.3f} of the true ones")
+    res = {"rows": DENOISE_ROWS, "mislabelled": len(noisy),
+           "seconds": seconds, "train_steps": steps["train"],
+           "scoring_batches": steps["eval"], "k1_launches": k1,
+           "k2_launches": k2, "k2_resident_launches": k2_resident,
+           "output_rows": len(kept), "kept_share_true": share_true,
+           "kept_share_mislabelled": share_noisy}
+    print(f"denoise: {json.dumps(res)}", flush=True)
+    return res
 
 
 def profile_steps(step, steps: int = 3, top: int = 8) -> tuple:
@@ -1204,6 +1503,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from deepsignal_tpu_torch.core.config import ModelConfig
     from deepsignal_tpu_torch.core.device import resolve_device
+    from deepsignal_tpu_torch.io import native
     from deepsignal_tpu_torch.io.feature_codec import convert_txt_to_binary
     from deepsignal_tpu_torch.ops.cuda import build, lstm, lstm_scan
     from deepsignal_tpu_torch.train.checkpoints import (
@@ -1216,8 +1516,13 @@ def main() -> None:
           f"python {sys.version.split()[0]}", flush=True)
     device = resolve_device(None)
 
+    cxx = subprocess.run([build.cxx_path(), "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()[0]
+    print(f"host compiler: {cxx}", flush=True)
     t0 = time.time()
-    reports = build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY])
+    reports = build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY,
+                                     native.PARSER_LIBRARY,
+                                     native.FORMATTER_LIBRARY])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
@@ -1228,6 +1533,11 @@ def main() -> None:
 
     dtypes = ("bfloat16", "float32")
     k1_rows = {d: check_encoder(d, device) for d in dtypes}
+    for d in dtypes:
+        d3 = check_encoder_d3(d, device)
+        k1_rows[d]["max_abs_err"] = max(k1_rows[d]["max_abs_err"],
+                                        *d3["cases_d3"].values())
+        k1_rows[d].update(d3)
     for d, key in (("bfloat16", "bf16"), ("float32", "f32")):
         k1_rows[d]["ptxas"] = {h: k1_ptxas[f"{key}_H{h}"] for h in (128, 256)}
     k2_rows = {d: check_scan(d, device) for d in dtypes}
@@ -1257,12 +1567,13 @@ def main() -> None:
 
     e2e = []
     for dtype_name in dtypes:
-        res, probs, labels, rows = run_e2e(
-            dtype_name, tsv, ckpt, os.path.join(work, f"calls_{dtype_name}.tsv"))
+        calls_path = os.path.join(work, f"calls_{dtype_name}.tsv")
+        res, probs, labels, rows = run_e2e(dtype_name, tsv, ckpt, calls_path)
         launches["K1", dtype_name]["call_mods"] = res["launches"]
         check_first_batch(dtype_name, tsv, ckpt, probs, labels)
         if dtype_name == "bfloat16":
-            res["stages"] = time_stages(tsv, ckpt, rows)
+            res["stages"] = time_stages(tsv, ckpt, rows,
+                                        check_native_host(tsv, calls_path))
         e2e.append(res)
 
     t0 = time.time()
@@ -1286,6 +1597,9 @@ def main() -> None:
         res["step"] = time_train_step(trainer, files)
         del trainer
         trains.append(res)
+    denoised = run_denoise(work, rng)
+    launches["K1", "float32"]["denoise"] = denoised["k1_launches"]
+    launches["K2", "float32"]["denoise"] = denoised["k2_launches"]
     parity = {d: check_step_parity(d, device) for d in dtypes}
 
     rows = []
@@ -1299,8 +1613,9 @@ def main() -> None:
             rows.append(row)
     print(f"chip_smoke: {time.time() - start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"e2e": e2e, "train": trains, "gradients": grads,
-                      "step_parity": parity, "card": card}), flush=True)
+    print(json.dumps({"e2e": e2e, "train": trains, "denoise": denoised,
+                      "gradients": grads, "step_parity": parity,
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

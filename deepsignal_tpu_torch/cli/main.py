@@ -1,5 +1,5 @@
-"""deepsignal-tpu-torch command line: the ``call_mods`` and ``train``
-subcommands.
+"""deepsignal-tpu-torch command line: the ``call_mods``, ``train`` and
+``denoise`` subcommands.
 
 Flag names and defaults follow ``deepsignal_tpu``'s CLI (and the
 reference's); ``--device`` (default ``cuda``) is new.  Torch is imported
@@ -60,6 +60,27 @@ def main_train(args) -> None:
     train(args.train_file, args.valid_file, args.model_dir, args.log_dir,
           mcfg, tcfg, is_binary=str2bool(args.is_binary),
           resume=str2bool(args.resume), device=args.device)
+
+
+def main_denoise(args) -> None:
+    display_args(args)
+    from ..core.config import DenoiseConfig, ModelConfig
+    from ..train.denoise import denoise
+    dcfg = DenoiseConfig(
+        iterations=args.iterations, epoch_num=args.epoch_num,
+        rounds=args.rounds, score_cf=args.score_cf,
+        step_interval=args.step_interval, batch_size=args.batch_size,
+        learning_rate=args.lr, decay_rate=args.decay_rate,
+        keep_prob=args.keep_prob, pos_weight=args.pos_weight,
+        is_cnn=str2bool(args.is_cnn), is_base=str2bool(args.is_base),
+        is_rnn=str2bool(args.is_rnn))
+    # the JAX package's mapping of the flags, kept as it is: --layer_num is
+    # parsed and not passed on (the model keeps ModelConfig's 3 layers)
+    mcfg = ModelConfig(
+        kmer_len=args.seq_len, cent_signals_len=args.cent_signals_len,
+        class_num=args.class_num, is_cnn=dcfg.is_cnn, is_rnn=dcfg.is_rnn,
+        is_base=dcfg.is_base, pos_weight=dcfg.pos_weight)
+    denoise(args.train_file, mcfg, dcfg, device=args.device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -139,6 +160,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device, default cuda; 'cpu' runs the plain "
                         "versions of the kernels")
     p.set_defaults(func=main_train)
+
+    p = subparsers.add_parser(
+        "denoise", description="denoise training samples by cross-rank")
+    p.add_argument("--train_file", type=str, required=True)
+    p.add_argument("--is_cnn", type=str, default="no")
+    p.add_argument("--is_base", type=str, default="no")
+    p.add_argument("--is_rnn", type=str, default="yes")
+    p.add_argument("--seq_len", type=int, default=17)
+    p.add_argument("--cent_signals_len", type=int, default=360)
+    p.add_argument("--layer_num", type=int, default=3)
+    p.add_argument("--class_num", type=int, default=2)
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--decay_rate", type=float, default=0.1)
+    p.add_argument("--keep_prob", default=0.5, type=float)
+    p.add_argument("--iterations", type=int, default=6)
+    p.add_argument("--epoch_num", type=int, default=5)
+    p.add_argument("--step_interval", type=int, default=100)
+    p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--score_cf", type=float, default=0.5,
+                   help="score cutoff")
+    p.add_argument("--pos_weight", type=float, default=1.0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device, default cuda; 'cpu' runs the plain "
+                        "versions of the kernels")
+    p.set_defaults(func=main_denoise)
     return parser
 
 

@@ -75,6 +75,26 @@ class TrainConfig:
 
 
 @dataclasses.dataclass
+class DenoiseConfig:
+    """denoise knobs (deepsignal/deepsignal.py:400-418 defaults): the
+    default model is RNN-only (no CNN branch, no base embedding)."""
+
+    iterations: int = 6
+    epoch_num: int = 5
+    rounds: int = 5
+    score_cf: float = 0.5
+    step_interval: int = 100
+    batch_size: int = 512
+    learning_rate: float = 0.001
+    decay_rate: float = 0.1
+    keep_prob: float = 0.5
+    pos_weight: float = 1.0
+    is_cnn: bool = False
+    is_base: bool = False
+    is_rnn: bool = True
+
+
+@dataclasses.dataclass
 class CallConfig:
     """call_mods knobs (deepsignal/deepsignal.py:258-267 defaults)."""
 

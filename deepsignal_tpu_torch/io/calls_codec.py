@@ -1,4 +1,11 @@
-"""Call-TSV codec (port of deepsignal_tpu/io/calls_codec.py, pure Python).
+"""Call-TSV codec (port of deepsignal_tpu/io/calls_codec.py).
+
+Call rows are formatted, and a batch's reads counted, by the native
+formatter (``io/native.py``, ``csrc/callfmt.cpp``); the pure-Python
+versions stay as its plain versions (``*_plain``).  Where the JAX package
+checks its native formatter once at import and falls back to Python in
+silence, the port checks it once, at first use, and raises when its bytes
+differ from the plain ones.
 
 call_mods output TSV, 10 columns (call_modifications.py:184-190):
   chrom, pos, strand, pos_in_strand, readname, read_strand, prob_0, prob_1,
@@ -7,9 +14,12 @@ call_mods output TSV, 10 columns (call_modifications.py:184-190):
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from ..core.constants import CODE2BASE_DNA, CODE2BASE_RNA
+from . import native
 
 
 def _make_kmer_lut(code2base: dict) -> np.ndarray:
@@ -42,7 +52,18 @@ def format_call_row(sampleinfo: str, prob_0_norm, prob_1_norm,
 def format_call_block(sampleinfo: list, p0: np.ndarray, p1: np.ndarray,
                       pred: np.ndarray, kmers: np.ndarray,
                       is_dna: bool = True) -> bytes:
-    """All call rows of a batch as one newline-terminated utf-8 block."""
+    """All call rows of a batch as one newline-terminated utf-8 block,
+    through the native formatter."""
+    native_checked()
+    lut = KMER_LUT_DNA if is_dna else KMER_LUT_RNA
+    return native.format_call_block(sampleinfo, p0, p1, pred, kmers, lut)
+
+
+def format_call_block_plain(sampleinfo: list, p0: np.ndarray, p1: np.ndarray,
+                            pred: np.ndarray, kmers: np.ndarray,
+                            is_dna: bool = True) -> bytes:
+    """The plain version of ``format_call_block``: one ``format_call_row``
+    per site."""
     p0 = np.ascontiguousarray(p0, dtype=np.float32)
     p1 = np.ascontiguousarray(p1, dtype=np.float32)
     kmer_strs = decode_kmer_strings(kmers, is_dna)
@@ -54,7 +75,13 @@ def format_call_block(sampleinfo: list, p0: np.ndarray, p1: np.ndarray,
 
 def count_read_runs(sampleinfo: list):
     """(n_runs, first_read, last_read) over the contiguous same-read runs of
-    a batch's sampleinfo (read name = 5th tab field)."""
+    a batch's sampleinfo (read name = 5th tab field), natively."""
+    native_checked()
+    return native.count_read_runs(sampleinfo)
+
+
+def count_read_runs_plain(sampleinfo: list):
+    """The plain version of ``count_read_runs``."""
     runs = 0
     prev = None
     first = ""
@@ -66,3 +93,52 @@ def count_read_runs(sampleinfo: list):
                 first = name
         prev = name
     return runs, first, prev if prev is not None else ""
+
+
+@functools.cache
+def native_checked() -> None:
+    """Hold the native formatter against the plain versions once per
+    process, on values from every formatting regime (the probe of the JAX
+    package's import-time check: positional and scientific, their
+    boundaries, subnormals, signed zeros and the specials), the float32
+    next to the installed numpy's positional range, and 4096 seeded random
+    bit patterns.  Raises RuntimeError on any difference; nothing falls
+    back.  The check's own calls are not counted as calls of the path."""
+    lo, hi = native.positional_range()
+    edges = [np.nextafter(np.float32(v), np.float32(to)) for v in (lo, hi)
+             for to in (0, np.inf)]
+    bits = np.random.default_rng(0).integers(0, 2**32, 4096, dtype=np.uint64)
+    probe = np.concatenate([
+        np.array([0.5, 0.1, 1e-4, 9.9999e-5, 1e-5, 1.2345e-7, 1e-38,
+                  1.4e-45, 0.0, -0.0, 1.0, 0.9999999, 123456.0, 1e8,
+                  9.999999e15, 1e16, 2 / 3, 1 / 3, np.inf, -np.inf, np.nan,
+                  -1.17549435e-38, -0.5, lo, hi, *edges], dtype=np.float32),
+        bits.astype(np.uint32).view(np.float32)])
+    got, want = native.repr_f32(probe), [str(v) for v in probe]
+    if got != want:
+        diff = [(g, w) for g, w in zip(got, want) if g != w]
+        raise RuntimeError(f"the native float32 repr differs from numpy's "
+                           f"(positional for {lo:g} <= |x| < {hi:g}) at "
+                           f"{len(diff)} values: {diff[:8]}")
+    info = ["chr1\t7\t+\t7\tread0\tt", "chrM\t9\t-\t1\tread1\tc"]
+    args = (info, np.array([0.25, 1e-6], dtype=np.float32),
+            np.array([0.75, 0.999999], dtype=np.float32),
+            np.array([1, 1], dtype=np.int64),
+            np.array([[0, 1, 2, 3, 4]] * 2, dtype=np.int32))
+    counted = (native.format_call_block, native.count_read_runs)
+    calls = [fn.calls for fn in counted]
+    try:
+        for is_dna in (True, False):
+            lut = KMER_LUT_DNA if is_dna else KMER_LUT_RNA
+            got = native.format_call_block(*args, lut)
+            want = format_call_block_plain(*args, is_dna)
+            if got != want:
+                raise RuntimeError(f"the native call-row formatter differs "
+                                   f"from the plain one: {got!r} != {want!r}")
+        got, want = native.count_read_runs(info), count_read_runs_plain(info)
+        if got != want:
+            raise RuntimeError(f"the native read-run count differs from the "
+                               f"plain one: {got} != {want}")
+    finally:
+        for fn, n in zip(counted, calls):
+            fn.calls = n

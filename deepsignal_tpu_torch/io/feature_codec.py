@@ -1,5 +1,8 @@
-"""Feature-TSV codec (port of deepsignal_tpu/io/feature_codec.py, pure
-Python).
+"""Feature-TSV codec (port of deepsignal_tpu/io/feature_codec.py).
+
+TSV rows are parsed by the native block parser (``io/native.py``,
+``csrc/fastparse.cpp``); ``parse_feature_lines_plain`` is the pure-Python
+parse it replaces, kept as its plain version.
 
 TSV columns (extract_features.py:1-4,289-303):
   chrom, pos, strand, pos_in_strand, readname, read_strand, k_mer,
@@ -19,6 +22,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..core.constants import BASE2CODE_DNA
+from . import native
 
 # k-mer encode table: A/C/G/T as the DNA codes, U as 3 (RNA k-mers), anything
 # else N=4; the alphabet is chosen when the k-mer is decoded again
@@ -69,7 +73,15 @@ class FeatureBatch:
 
 
 def parse_feature_lines(lines) -> FeatureBatch:
-    """Parse TSV feature lines (call_modifications.py:51-57)."""
+    """Parse TSV feature lines (call_modifications.py:51-57) with the native
+    block parser, at the widths of the first row."""
+    block = "".join(l if l.endswith("\n") else l + "\n" for l in lines)
+    return parse_feature_bytes(block.encode())
+
+
+def parse_feature_lines_plain(lines) -> FeatureBatch:
+    """The pure-Python parse of TSV feature lines, the plain version of the
+    native parser."""
     sampleinfo = []
     kmers, means, stds, lens, signals, labels = [], [], [], [], [], []
     for line in lines:
@@ -92,6 +104,14 @@ def parse_feature_lines(lines) -> FeatureBatch:
     )
 
 
+def feature_widths(line: bytes) -> tuple:
+    """(kmer_len, signal_len) of a feature row."""
+    words = line.split(b"\t")
+    if len(words) < 11:
+        raise ValueError("malformed feature row at block line 0")
+    return len(words[6]), words[10].count(b",") + 1
+
+
 def binary_record_dtype(kmer_len: int = 17, signal_len: int = 360) -> np.dtype:
     """Packed little-endian structured dtype of the reference's binary
     record, struct format '<{k}B{k}f{k}f{k}H{s}f1B'
@@ -111,9 +131,29 @@ def binary_record_len(kmer_len: int = 17, signal_len: int = 360) -> int:
     return kmer_len * 11 + signal_len * 4 + 1
 
 
-def parse_feature_bytes(block: bytes) -> FeatureBatch:
-    """Parse a bytes block of whole feature rows."""
-    return parse_feature_lines(block.decode().splitlines(True))
+def parse_feature_bytes(block: bytes, kmer_len: Optional[int] = None,
+                        signal_len: Optional[int] = None) -> FeatureBatch:
+    """Parse a bytes block of whole feature rows with the native parser;
+    ``kmer_len``/``signal_len`` default to the widths of its first row."""
+    if kmer_len is None or signal_len is None:
+        first = _first_row(block)
+        if not first:
+            return parse_feature_lines_plain([])
+        kmer_len, signal_len = feature_widths(first)
+    return FeatureBatch(*native.parse_feature_block(block, kmer_len,
+                                                    signal_len))
+
+
+def _first_row(block: bytes) -> bytes:
+    """The first non-empty line of a block, without its newline."""
+    start = 0
+    while True:
+        end = block.find(b"\n", start)
+        if end < 0:
+            return block[start:]
+        if end > start:
+            return block[start:end]
+        start = end + 1
 
 
 def iter_feature_bytes_chunks(path: str, chunk_bytes: int = 8 << 20):
@@ -158,8 +198,8 @@ def convert_txt_to_binary(txt_path: str, bin_path: str, kmer_len: int = 17,
     (process_utils.py:355-373); returns the record count."""
     dtype = binary_record_dtype(kmer_len, signal_len)
     total = 0
-    with open(txt_path, "r") as rf, open(bin_path, "wb") as wf:
-        chunk: list[str] = []
+    with open(txt_path, "rb") as rf, open(bin_path, "wb") as wf:
+        chunk: list = []
         for line in rf:
             chunk.append(line)
             if len(chunk) >= chunk_lines:
@@ -171,7 +211,7 @@ def convert_txt_to_binary(txt_path: str, bin_path: str, kmer_len: int = 17,
 
 
 def _write_binary_chunk(lines: list, wf, dtype: np.dtype) -> int:
-    batch = parse_feature_lines(lines)
+    batch = parse_feature_bytes(b"".join(lines))
     rec = np.empty(len(batch), dtype=dtype)
     rec["bases"] = batch.kmers.astype(np.uint8)
     rec["means"] = batch.means
@@ -188,24 +228,28 @@ def iter_feature_batches_by_read(features_file: str,
                                  ) -> Iterator[FeatureBatch]:
     """Stream a feature TSV grouped by read (call_modifications.py:35-91):
     a read's rows stay in one batch; a batch is emitted whenever
-    ``reads_per_batch`` distinct reads have completed."""
-    pending: list[str] = []
-    readid_pre: Optional[str] = None
+    ``reads_per_batch`` distinct reads have completed.
+
+    Lines are read as bytes and go to the native parser as one block, with
+    no decode and encode of each line; rows split by "\\n" (or "\\r\\n")
+    give the batches the text-mode read of the JAX package gives."""
+    pending: list = []
+    readid_pre: Optional[bytes] = None
     r_num = 0
-    with open(features_file, "r") as rf:
+    with open(features_file, "rb") as rf:
         for line in rf:
-            readid = line.split("\t", 5)[4]
+            readid = line.split(b"\t", 5)[4]
             if readid_pre is None:
                 readid_pre = readid
             elif readid != readid_pre:
                 r_num += 1
                 readid_pre = readid
                 if r_num % reads_per_batch == 0:
-                    yield parse_feature_lines(pending)
+                    yield parse_feature_bytes(b"".join(pending))
                     pending = []
             pending.append(line)
     if pending:
-        yield parse_feature_lines(pending)
+        yield parse_feature_bytes(b"".join(pending))
 
 
 def format_feature_row(chrom: str, pos: int, strand: str, pos_in_strand: int,

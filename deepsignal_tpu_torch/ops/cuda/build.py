@@ -1,11 +1,12 @@
-"""Build the CUDA sources in ``deepsignal_tpu_torch/csrc`` at first use.
+"""Build the native sources in ``deepsignal_tpu_torch/csrc`` at first use.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-into its own shared library for Hopper (``sm_90a``), which is loaded with
-``ctypes``.  Libraries go into ``build/deepsignal_tpu_torch/`` beside the
-package, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused; ptxas's report (registers, spills)
-is kept beside it.  A failed build raises.
+Each source has a plain C interface and is compiled into its own shared
+library, which is loaded with ``ctypes``: ``csrc/<name>.cu`` by ``nvcc`` for
+Hopper (``sm_90a``), ``csrc/<name>.cpp`` (host code) by ``$CXX`` or ``g++``.
+Libraries go into ``build/deepsignal_tpu_torch/`` beside the package, named
+by a hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused; the compiler's report (for ``nvcc`` ptxas's
+registers and spills) is kept beside it.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "deepsignal_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _loaded: dict = {}
 
@@ -34,16 +36,38 @@ def nvcc_path() -> str:
                        "built on the machine with the card")
 
 
+def cxx_path() -> str:
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found (set CXX)")
+    return found
+
+
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu`` or ``csrc/<name>.cpp``, whichever exists."""
+    for suffix in (".cu", ".cpp"):
+        path = CSRC / f"{name}{suffix}"
+        if path.exists():
+            return path
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
+def _flags(src: Path) -> tuple:
+    return NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = source_path(name)
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(_flags(src)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build_libraries(names) -> dict:
     """Compile every source in ``names`` that has no current build, one
-    ``nvcc`` each, all started together.  Returns {name: ptxas report}, for
-    a library that was already built the report of its build."""
+    compiler each, all started together.  Returns {name: compiler report},
+    for a library that was already built the report of its build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     reports = {}
@@ -54,8 +78,9 @@ def build_libraries(names) -> dict:
             reports[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        src = source_path(name)
+        compiler = nvcc_path() if src.suffix == ".cu" else cxx_path()
+        cmd = [compiler, *_flags(src), "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -64,17 +89,18 @@ def build_libraries(names) -> dict:
         log, _ = proc.communicate()
         reports[name] = log
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{name}: {Path(proc.args[0]).name} exited "
+                          f"{proc.returncode}\n{log}")
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return reports
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>``, built first if needed."""
     if name not in _loaded:
         build_libraries([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))

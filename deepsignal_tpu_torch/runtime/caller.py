@@ -25,9 +25,10 @@ from ..core.config import FeatureConfig, ModelConfig
 from ..core.device import resolve_device
 from ..core.logging import ThroughputMeter
 from ..io.calls_codec import count_read_runs, format_call_block
-from ..io.feature_codec import FeatureBatch, iter_feature_batches_by_read
+from ..io.feature_codec import FeatureBatch
 from ..models.deepsignal import model_from_state_dict, predictions
 from ..train.checkpoints import load_checkpoint, variables_to_state_dict
+from .pipeline import stream_file_feature_batches
 
 # The shipped call_mods compute dtype, as in the JAX package; pass
 # compute_dtype="float32" for the reference-parity path.
@@ -228,20 +229,26 @@ def run_call_mods(input_path: str, model_path: str, result_file: str,
             "fast5-directory input is not yet ported to deepsignal_tpu_torch;"
             " extract a feature TSV first and pass that")
     feature_cfg = feature_cfg or FeatureConfig()
-    cfg, variables = load_checkpoint(os.path.abspath(model_path),
-                                     cfg=model_cfg_override)
-    cfg = dataclasses.replace(
-        cfg, compute_dtype=compute_dtype or DEFAULT_COMPUTE_DTYPE)
-    print("compute dtype: %s%s" % (
-        cfg.compute_dtype,
-        "" if cfg.compute_dtype == "float32"
-        else "  (pass --compute_dtype float32 for reference-parity probs)"))
-    caller = ModCaller(cfg, variables, batch_size=batch_size, device=device)
-    batches = iter_feature_batches_by_read(os.path.abspath(input_path),
-                                           f5_batch_num)
-    meter = ThroughputMeter("call_mods")
-    count = call_mods_on_batches(caller, batches, result_file, meter=meter,
-                                 is_dna=feature_cfg.is_dna)
+    # the TSV is parsed in a background reader process, beside the device;
+    # it starts first, so that its start runs beside the checkpoint load
+    batches = stream_file_feature_batches(os.path.abspath(input_path),
+                                          f5_batch_num, background=True)
+    try:
+        cfg, variables = load_checkpoint(os.path.abspath(model_path),
+                                         cfg=model_cfg_override)
+        cfg = dataclasses.replace(
+            cfg, compute_dtype=compute_dtype or DEFAULT_COMPUTE_DTYPE)
+        print("compute dtype: %s%s" % (
+            cfg.compute_dtype,
+            "" if cfg.compute_dtype == "float32"
+            else "  (pass --compute_dtype float32 for reference-parity probs)"))
+        caller = ModCaller(cfg, variables, batch_size=batch_size,
+                           device=device)
+        meter = ThroughputMeter("call_mods")
+        count = call_mods_on_batches(caller, batches, result_file,
+                                     meter=meter, is_dna=feature_cfg.is_dna)
+    finally:
+        batches.close()
     print(meter.line())
     print("call_mods costs %.2f seconds.." % (time.time() - start))
     return count

@@ -7,7 +7,8 @@ and ``TextLineDataset`` + parse_a_line with a 3*batch shuffle buffer
 one padded by repeating its last row, with its count of real rows under
 ``"__valid__"``.  Shuffling is a full per-epoch permutation from a
 ``np.random.Generator``, the same draws as the JAX package's, so one seed
-gives the same batches in the same order in both packages.
+gives the same batches in the same order in both packages.  Feature TSVs
+are parsed by the native block parser (``io/native.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 
 from ..io.feature_codec import (FeatureBatch, binary_record_dtype,
-                                iter_feature_bytes_chunks,
+                                feature_widths, iter_feature_bytes_chunks,
                                 parse_feature_bytes)
 
 
@@ -113,13 +114,16 @@ class TextFeatureDataset:
                         carry.signals, carry.labels, batch_size)
 
     def _chunks(self) -> Iterator[FeatureBatch]:
-        with open(self.path, "r") as rf:
-            line_bytes = len(rf.readline())
-        if not line_bytes:
+        with open(self.path, "rb") as rf:
+            first = rf.readline()
+        if not first:
             return
-        chunk_bytes = max(1 << 20, self.chunk_lines * line_bytes)
+        # the widths of the first row hold for the file, as in the JAX
+        # package
+        kmer_len, signal_len = feature_widths(first)
+        chunk_bytes = max(1 << 20, self.chunk_lines * len(first))
         for block in iter_feature_bytes_chunks(self.path, chunk_bytes):
-            yield parse_feature_bytes(block)
+            yield parse_feature_bytes(block, kmer_len, signal_len)
 
 
 def _take(fb: FeatureBatch, idx: np.ndarray) -> FeatureBatch:

@@ -75,6 +75,24 @@ def test_encoder_kernel_matches_plain(cuda_device, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [512, 45])
+def test_encoder_kernel_matches_plain_at_depth_3(cuda_device, dtype, batch):
+    # denoise's RNN-only model: the encoder's input is the three per-base
+    # signal features; 512 is its scoring batch, 45 a ragged tail
+    case = _encoder_case(13, batch, 17, 3, 256, dtype, cuda_device)
+    before = bilstm_encoder_fused.launches
+    got = bilstm_encoder_fused(*case)
+    want = bilstm_encoder_fused_plain(*case)
+    torch.cuda.synchronize()
+    assert bilstm_encoder_fused.launches == before + 1
+    assert got.dtype == dtype and got.shape == (batch, 512)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_encoder_kernel_rejects_what_it_does_not_take(cuda_device):
     x, kf, bf, kb, bb = _encoder_case(7, 8, 5, 7, 384, torch.float32,
                                       cuda_device)
@@ -127,12 +145,14 @@ def _scan_case(seed, b, t, d, h, dtype, device):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("shape", [(512, 17, 131, 256), (512, 17, 256, 256),
                                    (9, 17, 256, 256), (4, 17, 131, 256),
+                                   (512, 17, 3, 256), (45, 17, 3, 256),
                                    (33, 3, 8, 128), (13, 6, 5, 98),
                                    (3, 5, 7, 100), (9, 5, 16, 512),
                                    (3, 4, 7, 512)])
 def test_scan_kernel_matches_plain(cuda_device, dtype, reverse, shape):
-    # the train shapes (layer 0 and layers 1-2), a ragged tile, the
-    # call_mods small-batch path and H 128 take the resident kernel;
+    # the train shapes (layer 0 and layers 1-2; layer 0 of denoise's
+    # RNN-only model at depth 3, its batch and a ragged one), a ragged tile,
+    # the call_mods small-batch path and H 128 take the resident kernel;
     # hidden 98 and 100 (not multiples of 4 and 64) and 512 (the largest
     # either kernel takes) the streaming one, batches 13, 9 and 3 leave a
     # ragged tile
@@ -225,3 +245,40 @@ def test_small_batch_encoder_launches_the_scan_kernel(cuda_device, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=0,
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_denoise_runs_both_kernels_on_the_card(cuda_device, tmp_path):
+    """A small denoise on the card: RNN-only at hidden 128 (the fused
+    kernel takes it), 120 rows in halves of 60, batch 16: per half 4 train
+    steps of 6 scan launches each and 4 scoring batches of one fused
+    launch."""
+    from deepsignal_tpu_torch.core.config import DenoiseConfig
+    from deepsignal_tpu_torch.io.feature_codec import format_feature_row
+    from deepsignal_tpu_torch.train.denoise import denoise
+
+    rng = np.random.default_rng(14)
+    k, s = 17, 24
+    train_f = tmp_path / "train.tsv"
+    with open(train_f, "w") as f:
+        for i in range(120):
+            label = i % 2
+            f.write(format_feature_row(
+                "chr1", i, "+", i, f"r{i}", "t",
+                "".join(rng.choice(list("ACGT"), k)),
+                rng.normal(label - 0.5, 1, k), np.abs(rng.normal(0, 1, k)),
+                rng.integers(1, 30, k), np.around(rng.normal(0, 1, s), 6),
+                label) + "\n")
+    cfg = ModelConfig(lstm_hidden=128, kmer_len=k, cent_signals_len=s,
+                      is_cnn=False, is_base=False)
+    dcfg = DenoiseConfig(iterations=1, rounds=1, epoch_num=1, batch_size=16,
+                         step_interval=1)
+    scans, fused = lstm_layer_scan.launches, bilstm_encoder_fused.launches
+    resident = lstm_layer_scan.launches_by_variant["resident"]
+    out = denoise(str(train_f), cfg, dcfg, seed=3)
+    torch.cuda.synchronize()
+    assert lstm_layer_scan.launches - scans == 2 * 4 * 6
+    assert lstm_layer_scan.launches_by_variant["resident"] - resident == 48
+    assert bilstm_encoder_fused.launches - fused == 2 * 4
+    labels = [int(line.rsplit("\t", 1)[1]) for line in open(out)]
+    assert 0 < sum(labels) < len(labels)

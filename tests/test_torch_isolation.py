@@ -24,7 +24,9 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     modules = _port_modules()
-    assert "deepsignal_tpu_torch.ops.cuda.lstm" in modules
+    for name in ("ops.cuda.lstm", "io.native", "runtime.pipeline",
+                 "tools.dataset", "train.denoise"):
+        assert f"deepsignal_tpu_torch.{name}" in modules
     code = ("import sys\n"
             f"for m in {modules!r}:\n"
             "    __import__(m)\n"
@@ -40,7 +42,9 @@ def test_port_modules_import_without_jax():
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     # flax is named in docstrings as the author of the checkpoint format
     pattern = re.compile(r"\bjax\b|\bdeepsignal_tpu\.")
-    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files = [p for p in PORT.rglob("*")
+             if p.suffix in (".py", ".cu", ".cuh", ".cpp", ".h")]
+    assert {p.name for p in files} >= {"fastparse.cpp", "callfmt.cpp"}
     files.append(REPO / "chip_smoke.py")
     offenders = [f"{p.relative_to(REPO)}:{i}"
                  for p in files
@@ -68,3 +72,20 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                       str(tmp_path / "out.tsv"))
     assert not (tmp_path / "out.tsv").exists()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path, where):
+    """chip_smoke.py exits non-zero and prints no result line on a machine
+    without CUDA, and in a directory that holds it and nothing else of the
+    repo (where it must fail on the card too: a run there with rc 1 is the
+    check working, not a fault)."""
+    script = REPO / "chip_smoke.py"
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
+        script = tmp_path / "chip_smoke.py"
+    out = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "chip_smoke: FAIL" in out.stderr
