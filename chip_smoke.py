@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 It prints the card and builds every CUDA kernel of the port from
 ``deepsignal_tpu_torch/csrc``, with ptxas's register and spill counts (a
 spill in the fused encoder or in a resident scan kernel fails the run), and
-beside them the host C++ code (the feature-TSV parser and the call-row
-formatter) with the host compiler, whose version it prints.  It
+beside them the host C++ code (the feature-TSV parser, the call-row
+formatter and the featurizer) with the host compiler, whose version it
+prints.  It
 holds each kernel against its plain PyTorch version at the shapes of the
 main paths (the fused encoder also at the call path's tail batch and at a
 small ragged one; the scan at both train depths, a ragged tile, the call
@@ -21,7 +22,7 @@ library call that computes the same function (the scan also in its parts
 and through its streaming variant, at both train depths).
 It checks the kernels' gradients against autograd through their plain
 versions, and that a batch the fused encoder does not take runs through the
-per-layer kernel.  Then it drives the three main paths at full width:
+per-layer kernel.  Then it drives the four main paths at full width:
 
 - ``call_mods`` end to end through ``run_call_mods``, with random seeded
   weights, on a synthetic feature TSV, in bfloat16 and in float32: the TSV
@@ -33,6 +34,18 @@ per-layer kernel.  Then it drives the three main paths at full width:
   the validation TSV with the best checkpoint; every scan launch of a train
   step must be of the resident variant.  One train step through the
   kernels is held against the same step through the plain versions;
+- ``call_mods`` from reads: 120 seeded in-memory tombo-resquiggled reads
+  (no h5py, no file) are featurized by the native featurizer, which is
+  first held against its plain version byte for byte on 8 of them and on
+  the golden fixture's reads (``tests/golden/features_golden.tsv``); then
+  ``run_extract``'s seam writes their feature TSV with 3 extract workers,
+  and ``ModCaller`` + ``call_mods_on_batches`` over the seam of
+  ``stream_fast5_feature_batches`` calls every site in bfloat16 and in
+  float32, K1 launched once per device batch, the first batch held against
+  the plain encoder, each run once more under ``torch.profiler`` for the
+  device's idle share.  ``run_call_mods`` on a fast5 directory raises the
+  ImportError that names h5py where h5py is missing, and calls 20
+  synthetic files where it is present;
 - ``denoise`` through ``denoise()`` with ``DenoiseConfig``'s RNN-only model
   on a synthetic labelled set whose positives are 30% mislabelled, one
   iteration of one round of one epoch: every scan launch of a train step
@@ -72,6 +85,17 @@ B, T, D, H = 4096, 17, 131, 256
 N_ROWS = 20000          # synthetic feature rows: 4 full device batches + tail
 SITES_PER_READ = 40
 READS_PER_BATCH = 50    # run_call_mods's f5_batch_num: 10 read batches
+# the reads path: 120 in-memory reads of 8,000 bases (about 500 CpG sites
+# each, 60,000 in all, 15 device batches); 8 reads a worker batch, 3
+# workers (nproc 4); the native featurizer held against its plain version
+# on 8 reads; the fast5 entry point on 20 files where h5py is present
+N_READS = 120
+READ_BASES = 8000
+READS_PER_WORKER_BATCH = 8
+EXTRACT_NPROC = 4
+FEATURIZE_READS = 8
+FAST5_FILES = 20
+READS_SEED, FAST5_SEED = 606, 607
 # the train path: batch 512 (TrainConfig's default), 12 train batches and 2
 # validation batches (the second one padded), a sweep every 6 steps
 TRAIN_B = 512
@@ -100,6 +124,10 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # downstream round again at other places: a few 2**-8, with a margin.
 STEP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MARGIN = 1e-3           # label check skips sites with |p1 - p0| below this
+# a device batch's calls vs the plain encoder, max |dprob|: on an H100 80GB
+# HBM3 at 700 W the first batches read 2.6e-3 to 3.1e-3 in bfloat16 and
+# 9.1e-7 to 1.2e-6 in float32; a broken encoder moves them by far more
+DPROB_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s of float32 FMA outside the tensor cores and of bfloat16 tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1030,14 +1058,26 @@ def time_stages(tsv, ckpt, calls, native: dict) -> dict:
 
 
 def check_first_batch(dtype_name, tsv, ckpt, probs, labels) -> None:
-    """Labels of the first device batch equal those of the same model with
-    the plain encoder (outside the |p1 - p0| < MARGIN band)."""
+    """Labels of the first device batch of the TSV equal those of the same
+    model with the plain encoder (outside the |p1 - p0| < MARGIN band)."""
+    from deepsignal_tpu_torch.io.feature_codec import parse_feature_lines
+    with open(tsv) as f:
+        fb = parse_feature_lines([next(f) for _ in range(B)])
+    check_batch_against_plain(dtype_name, "e2e", fb, ckpt, probs[:B],
+                              labels[:B])
+
+
+def check_batch_against_plain(dtype_name, tag, fb, ckpt, probs,
+                              labels) -> dict:
+    """The calls of one device batch (``probs`` [n, 2], ``labels`` [n])
+    against the same model with the plain encoder on the batch's features:
+    no label differs outside the |p1 - p0| < MARGIN band, and no
+    probability by DPROB_TOL or more."""
     import dataclasses
     from unittest import mock
 
     import torch
 
-    from deepsignal_tpu_torch.io.feature_codec import parse_feature_lines
     from deepsignal_tpu_torch.models import layers
     from deepsignal_tpu_torch.models.deepsignal import model_from_state_dict
     from deepsignal_tpu_torch.ops.bilstm import bilstm_encoder_fused_plain
@@ -1048,8 +1088,6 @@ def check_first_batch(dtype_name, tsv, ckpt, probs, labels) -> None:
     cfg = dataclasses.replace(cfg, compute_dtype=dtype_name)
     model = model_from_state_dict(cfg, variables_to_state_dict(cfg, variables),
                                   torch.device("cuda"))
-    with open(tsv) as f:
-        fb = parse_feature_lines([next(f) for _ in range(B)])
     dev = [torch.from_numpy(a).cuda() for a in
            (fb.kmers, fb.means, fb.stds, fb.lens.astype(np.float32),
             fb.signals)]
@@ -1060,13 +1098,336 @@ def check_first_batch(dtype_name, tsv, ckpt, probs, labels) -> None:
     p_plain = act / act.sum(1, keepdims=True)
     plain_labels = act.argmax(1)
     sure = np.abs(p_plain[:, 1] - p_plain[:, 0]) >= MARGIN
-    flips = int((plain_labels[sure] != labels[:B][sure]).sum())
-    dprob = float(np.abs(p_plain - probs[:B]).max())
-    print(f"e2e {dtype_name}: first batch vs plain encoder: {flips} label "
+    flips = int((plain_labels[sure] != labels[sure]).sum())
+    dprob = float(np.abs(p_plain - probs).max())
+    print(f"{tag} {dtype_name}: first batch vs plain encoder: {flips} label "
           f"flips over {int(sure.sum())} sites outside the margin, max "
           f"|dprob| {dprob:.3e}", flush=True)
-    check(flips == 0, f"{dtype_name}: {flips} labels differ from the plain "
-          f"encoder")
+    check(flips == 0, f"{tag} {dtype_name}: {flips} labels differ from the "
+          f"plain encoder")
+    check(dprob < DPROB_TOL[dtype_name], f"{tag} {dtype_name}: max |dprob| "
+          f"{dprob:.3e} vs the plain encoder, bound {DPROB_TOL[dtype_name]}")
+    return {"label_flips": flips, "sites_outside_margin": int(sure.sum()),
+            "max_dprob": dprob}
+
+
+# --------------------------------------------------------------------------
+# the reads path: featurize -> K1 -> call TSV, from seeded in-memory reads
+
+
+def make_reads(seed: int) -> list:
+    """``N_READS`` in-memory tombo-resquiggled reads of ``READ_BASES``
+    uniform random bases, 3-21 raw samples a base, raw int16 values in
+    380-919 with the scaling constants of ``write_synthetic_fast5``, drawn
+    as the golden fixture draws its reads (tests/test_golden.py); strands
+    alternate, and the reads tile the contig."""
+    from deepsignal_tpu_torch.io.fast5 import synthetic_read
+    return [synthetic_read(**kw)
+            for kw in read_kwargs(seed, N_READS, READ_BASES)]
+
+
+def read_kwargs(seed: int, n: int, bases: int) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        seq = "".join(np.array(list("ACGT"))[rng.integers(0, 4, bases)])
+        lengths = rng.integers(3, 22, size=bases)
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        raw = rng.integers(380, 920, size=int(lengths.sum()) + 7
+                           ).astype(np.int16)
+        out.append(dict(read_id=f"read-{i:04d}", raw_signal=raw,
+                        event_starts_rel=starts, event_lengths=lengths,
+                        seq=seq, mapped_chrom="chr1", mapped_start=bases * i,
+                        mapped_strand="+-"[i % 2], read_start_rel_to_raw=4))
+    return out
+
+
+def golden_reads() -> list:
+    """The three reads of the golden fixture (tests/test_golden.py), drawn
+    as it draws them, in memory."""
+    from deepsignal_tpu_torch.io.fast5 import synthetic_read
+    rng = np.random.default_rng(424242)
+    genome = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 3000)])
+    reads = []
+    for i, strand in enumerate(["+", "-", "+"]):
+        start = 700 * i
+        seq = genome[start:start + 250]
+        lengths = rng.integers(3, 22, size=len(seq))
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        raw = rng.integers(380, 920,
+                           size=int(lengths.sum()) + 7).astype(np.int16)
+        reads.append(synthetic_read(
+            read_id=f"golden-{i}", raw_signal=raw, event_starts_rel=starts,
+            event_lengths=lengths, seq=seq, mapped_chrom="chrG",
+            mapped_start=start, mapped_strand=strand,
+            read_start_rel_to_raw=4))
+    return reads
+
+
+def check_featurize(reads: list) -> tuple:
+    """The native featurizer against its plain version on the card's host:
+    on ``FEATURIZE_READS`` of the reads, the rows of ``to_tsv_rows`` (native
+    segment stats and ``format_rows6``) equal those of the plain segment
+    stats and ``format_feature_row`` byte for byte, and their time per
+    site; and the golden fixture's rows equal
+    tests/golden/features_golden.tsv byte for byte.  Returns (result, the
+    rows of those reads)."""
+    from unittest import mock
+
+    from deepsignal_tpu_torch.core.config import FeatureConfig
+    from deepsignal_tpu_torch.core.constants import get_motif_seqs
+    from deepsignal_tpu_torch.featurize import extractor, signal
+    from deepsignal_tpu_torch.io import native
+
+    cfg = FeatureConfig()
+    motifs = get_motif_seqs(cfg.motifs)
+    some = reads[:FEATURIZE_READS]
+    signal.featurizer_checked()  # the first use's probe, outside the clock
+    native.segment_stats.calls = native.format_rows6.calls = 0
+    t0 = time.perf_counter()
+    feats = [extractor.extract_read_features(r, motifs, cfg) for r in some]
+    rows = [row for f in feats for row in f.to_tsv_rows()]
+    native_s = time.perf_counter() - t0
+    calls = {"segment_stats": native.segment_stats.calls,
+             "format_rows6": native.format_rows6.calls}
+    check(calls == {"segment_stats": len(some), "format_rows6": 3 * len(some)},
+          f"featurize: native calls {calls}")
+    with mock.patch.object(extractor, "segment_stats",
+                           signal.segment_stats_plain):
+        t0 = time.perf_counter()
+        plain_feats = [extractor.extract_read_features(r, motifs, cfg)
+                       for r in some]
+        plain = [row for f in plain_feats for row in f.to_tsv_rows_plain()]
+        plain_s = time.perf_counter() - t0
+    check(rows == plain, "featurize: the native rows differ from the plain "
+          "version's")
+    for f, g in zip(feats, plain_feats):
+        for name in ("means", "stds"):
+            check(getattr(f, name).tobytes() == getattr(g, name).tobytes(),
+                  f"featurize: native segment {name} differ from numpy's")
+
+    # the native MAD normalization (off the path) against the one the path
+    # runs, on the same reads
+    scaled = [signal.rescale_signals(r.raw_signal, r.scaling, r.offset)
+              for r in some]
+    t0 = time.perf_counter()
+    mad_native = [native.normalize_mad(x) for x in scaled]
+    mad_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mad_path = [signal.normalize_signals(x, "mad") for x in scaled]
+    mad_path_s = time.perf_counter() - t0
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(mad_native, mad_path)),
+          "featurize: the native MAD normalization differs from numpy's")
+
+    golden = [row for f in extractor.extract_fast5_batch(
+        golden_reads(), motifs, FeatureConfig(central_sample_seed=99),
+        chrom2len={"chrG": 3000})[0] for row in f.to_tsv_rows()]
+    with open(os.path.join(REPO, "tests", "golden",
+                           "features_golden.tsv")) as f:
+        want = f.read().splitlines()
+    differ = sum(a != b for a, b in zip(golden, want))
+    check(golden == want, f"featurize: {differ} of {len(want)} golden rows "
+          f"differ ({len(golden)} rows)")
+    res = {"reads": len(some), "sites": len(rows),
+           "native_us_per_site": native_s / len(rows) * 1e6,
+           "plain_us_per_site": plain_s / len(rows) * 1e6,
+           "mad_native_us_per_read": mad_native_s / len(some) * 1e6,
+           "mad_path_us_per_read": mad_path_s / len(some) * 1e6,
+           "golden_rows": len(golden), "host_cpus": os.cpu_count(),
+           "numpy": np.__version__}
+    print(f"featurize host: {json.dumps(res)}", flush=True)
+    return res, rows
+
+
+def run_extract_phase(reads: list, rows: list, work: str) -> dict:
+    """``run_extract_reads`` (``run_extract``'s seam) on the in-memory
+    reads with ``EXTRACT_NPROC`` processes: every read's sites written, and
+    the featurize phase's reads give the same rows."""
+    from deepsignal_tpu_torch.core.config import FeatureConfig
+    from deepsignal_tpu_torch.runtime.pipeline import run_extract_reads
+
+    out = os.path.join(work, "extract.tsv")
+    stats = {}
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        errors = run_extract_reads(reads, out, FeatureConfig(),
+                                   nproc=EXTRACT_NPROC,
+                                   f5_batch_num=READS_PER_WORKER_BATCH,
+                                   stats=stats)
+    seconds = time.perf_counter() - t0
+    print(printed.getvalue(), end="", flush=True)
+    names = {r.split("\t", 5)[4] for r in rows}
+    with open(out) as f:
+        written = f.read().splitlines()
+    mine = sorted(r for r in written if r.split("\t", 5)[4] in names)
+    check(errors == 0 and stats["lost_batches"] == 0
+          and stats["crashed_workers"] == 0, f"extract: {stats}")
+    check(stats["rows"] == len(written), "extract: rows written")
+    check(mine == sorted(rows), "extract: the rows of the featurize phase's "
+          "reads differ")
+    res = {"reads": len(reads), "rows": len(written), "seconds": seconds,
+           "sites_per_s": len(written) / seconds,
+           "workers": stats["n_workers"],
+           "first_batch_s": stats["first_batch_s"],
+           "reads_per_batch": READS_PER_WORKER_BATCH}
+    print(f"extract: {json.dumps(res)}", flush=True)
+    return res
+
+
+def run_e2e_reads(dtype_name: str, reads: list, ckpt: str, work: str,
+                  profiled: bool) -> dict:
+    """call_mods from the in-memory reads at full width: ``ModCaller`` and
+    ``call_mods_on_batches`` over ``stream_read_feature_batches`` (the seam
+    of ``stream_fast5_feature_batches``), the workers started before the
+    checkpoint loads, as ``run_call_mods`` starts them.  K1 launched once
+    per device batch; the calls in stream order, finite, summing to 1;
+    the first device batch equal to it through the plain encoder.  Also the
+    seconds the caller waited on the workers for batches (the first one
+    included).  With ``profiled``, the device's busy time over the run from
+    ``torch.profiler``."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepsignal_tpu_torch.core.config import FeatureConfig
+    from deepsignal_tpu_torch.core.logging import ThroughputMeter
+    from deepsignal_tpu_torch.io import native
+    from deepsignal_tpu_torch.io.feature_codec import FeatureBatch
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.runtime.caller import (ModCaller,
+                                                     call_mods_on_batches)
+    from deepsignal_tpu_torch.runtime.pipeline import \
+        stream_read_feature_batches
+    from deepsignal_tpu_torch.train.checkpoints import load_checkpoint
+
+    out_path = os.path.join(work, f"calls_reads_{dtype_name}.tsv")
+    seen = []
+    waited = [0.0]
+
+    def recorded(stream):
+        """The stream's batches, kept for the checks, and the time the
+        caller waits on the workers for them."""
+        while True:
+            t = time.perf_counter()
+            fb = next(stream, None)
+            waited[0] += time.perf_counter() - t
+            if fb is None:
+                return
+            seen.append(fb)
+            yield fb
+
+    stats = {}
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+        contextlib.nullcontext()
+    printed = io.StringIO()
+    bilstm_encoder_fused.launches = native.segment_stats.calls = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed), prof:
+        stream = stream_read_feature_batches(
+            reads, FeatureConfig(), nproc=EXTRACT_NPROC,
+            f5_batch_num=READS_PER_WORKER_BATCH, stats=stats)
+        try:
+            cfg, variables = load_checkpoint(ckpt)
+            cfg = dataclasses.replace(cfg, compute_dtype=dtype_name)
+            caller = ModCaller(cfg, variables, batch_size=B)
+            meter = ThroughputMeter("call_mods")
+            n = call_mods_on_batches(caller, recorded(stream), out_path,
+                                     meter=meter)
+        finally:
+            stream.close()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = bilstm_encoder_fused.launches
+    segment_calls = native.segment_stats.calls
+    print(printed.getvalue(), end="", flush=True)
+    tag = f"e2e reads {dtype_name}" + (" profiled" if profiled else "")
+    check(segment_calls == len(reads), f"{tag}: the workers' native segment "
+          f"stats ran {segment_calls} times for {len(reads)} reads")
+    fb = FeatureBatch.concat(seen)
+    device_batches = -(-len(fb) // B)
+    check(n == len(fb) > 0, f"{tag}: {n} calls for {len(fb)} sites")
+    check(stats["errors"] == stats["lost_batches"] == 0, f"{tag}: {stats}")
+    check(launches == device_batches, f"{tag}: K1 launched {launches} times "
+          f"for {device_batches} device batches")
+    with open(out_path) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    check(["\t".join(r[:6]) for r in rows] == fb.sampleinfo,
+          f"{tag}: rows out of stream order")
+    p = np.array([[float(r[6]), float(r[7])] for r in rows])
+    labels = np.array([int(r[8]) for r in rows])
+    check(bool(np.isfinite(p).all()), f"{tag}: non-finite probs")
+    check(float(np.abs(p.sum(1) - 1).max()) < 1e-5,
+          f"{tag}: prob_0 + prob_1 != 1")
+    res = {"dtype": dtype_name, "profiled": profiled, "reads": len(reads),
+           "sites": n, "seconds": seconds, "sites_per_s": n / seconds,
+           "reads_per_s": len(reads) / seconds,
+           "first_batch_s": stats["first_batch_s"],
+           "after_first_batch_sites_per_s":
+               n / (seconds - stats["first_batch_s"]),
+           "wait_for_workers_s": waited[0],
+           "workers": stats["n_workers"], "launches": launches,
+           "device_batches": device_batches,
+           "label_1_share": float(labels.mean())}
+    if profiled:
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not e.is_user_annotation) / 1e3
+        check(device_ms > 0, f"{tag}: the profiler saw no device time")
+        res.update(device_ms=device_ms,
+                   device_idle_share=1 - device_ms / (seconds * 1e3))
+    else:
+        res["first_batch"] = check_batch_against_plain(
+            dtype_name, "e2e reads", fb[:B], ckpt, p[:B], labels[:B])
+    print(f"{tag}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def check_fast5_entry(ckpt: str, work: str) -> dict:
+    """``run_call_mods`` on a fast5 directory: where h5py is missing it
+    raises the ImportError that names h5py; where h5py is present it calls
+    every site of ``FAST5_FILES`` files written by
+    ``write_synthetic_fast5``."""
+    import shutil
+
+    from deepsignal_tpu_torch.io.fast5 import write_synthetic_fast5
+    from deepsignal_tpu_torch.runtime.caller import run_call_mods
+
+    f5_dir = os.path.join(work, "fast5")
+    shutil.rmtree(f5_dir, ignore_errors=True)
+    os.makedirs(f5_dir)
+    out_path = os.path.join(work, "calls_fast5.tsv")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        try:
+            run_call_mods(f5_dir, ckpt, out_path, batch_size=B)
+        except ImportError as e:
+            check("h5py" in str(e), f"fast5: the ImportError names no h5py: "
+                  f"{e}")
+            print(f"fast5: no h5py here; a directory raises: {e}", flush=True)
+            return {"h5py": False, "raised": str(e)}
+        fail("fast5: a directory ran without h5py")
+    for i, kw in enumerate(read_kwargs(FAST5_SEED, FAST5_FILES, READ_BASES)):
+        write_synthetic_fast5(os.path.join(f5_dir, f"r{i}.fast5"), **kw)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        n = run_call_mods(f5_dir, ckpt, out_path, batch_size=B,
+                          nproc=EXTRACT_NPROC, f5_batch_num=4)
+    seconds = time.perf_counter() - t0
+    print(printed.getvalue(), end="", flush=True)
+    with open(out_path) as f:
+        rows = [line.split("\t") for line in f]
+    check(n == len(rows) > 0 and "0 of %d fast5 files failed" % FAST5_FILES
+          in printed.getvalue(), f"fast5: {n} calls")
+    check(bool(np.isfinite(np.float32([r[6:8] for r in rows])).all()),
+          "fast5: non-finite probabilities")
+    res = {"h5py": True, "files": FAST5_FILES, "sites": n,
+           "seconds": seconds}
+    print(f"fast5: {json.dumps(res)}", flush=True)
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1522,7 +1883,8 @@ def main() -> None:
     t0 = time.time()
     reports = build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY,
                                      native.PARSER_LIBRARY,
-                                     native.FORMATTER_LIBRARY])
+                                     native.FORMATTER_LIBRARY,
+                                     native.FEATURIZER_LIBRARY])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
@@ -1577,6 +1939,22 @@ def main() -> None:
         e2e.append(res)
 
     t0 = time.time()
+    reads = make_reads(READS_SEED)
+    print(f"reads: {N_READS} in-memory reads of {READ_BASES} bases in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    featurized, feature_rows = check_featurize(reads)
+    extracted = run_extract_phase(reads, feature_rows, work)
+    e2e_reads = []
+    for dtype_name in dtypes:
+        res = run_e2e_reads(dtype_name, reads, ckpt, work, profiled=False)
+        launches["K1", dtype_name]["call_mods_reads"] = res["launches"]
+        res["profile"] = run_e2e_reads(dtype_name, reads, ckpt, work,
+                                       profiled=True)
+        e2e_reads.append(res)
+    fast5 = check_fast5_entry(ckpt, work)
+    del reads
+
+    t0 = time.time()
     files = {k: os.path.join(work, name) for k, name in (
         ("train_tsv", "train.tsv"), ("valid_tsv", "valid.tsv"),
         ("train_bin", "train.bin"), ("valid_bin", "valid.bin"))}
@@ -1615,6 +1993,9 @@ def main() -> None:
     print(card, flush=True)
     print(json.dumps({"e2e": e2e, "train": trains, "denoise": denoised,
                       "gradients": grads, "step_parity": parity,
+                      "reads": {"featurize": featurized,
+                                "extract": extracted, "e2e": e2e_reads,
+                                "fast5": fast5},
                       "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

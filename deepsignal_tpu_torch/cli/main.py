@@ -1,5 +1,5 @@
-"""deepsignal-tpu-torch command line: the ``call_mods``, ``train`` and
-``denoise`` subcommands.
+"""deepsignal-tpu-torch command line: the ``extract``, ``call_mods``,
+``train`` and ``denoise`` subcommands.
 
 Flag names and defaults follow ``deepsignal_tpu``'s CLI (and the
 reference's); ``--device`` (default ``cuda``) is new.  Torch is imported
@@ -24,11 +24,40 @@ def display_args(args) -> None:
     print("# ===============================================")
 
 
+def _feature_cfg_from_args(args):
+    from ..core.config import FeatureConfig
+    return FeatureConfig(
+        kmer_len=args.kmer_len, cent_signals_len=args.cent_signals_len,
+        motifs=args.motifs, mod_loc=args.mod_loc,
+        methy_label=getattr(args, "methy_label", 1),
+        normalize_method=args.normalize_method,
+        is_dna=str2bool(args.is_dna),
+        corrected_group=args.corrected_group,
+        basecall_subgroup=args.basecall_subgroup)
+
+
+def main_extract(args) -> int:
+    """Exit code 1 when every fast5 file failed."""
+    display_args(args)
+    from ..runtime.pipeline import run_extract
+    stats = {}
+    errors = run_extract(
+        args.fast5_dir, args.write_path, _feature_cfg_from_args(args),
+        reference_path=args.reference_path, nproc=args.nproc,
+        f5_batch_num=args.f5_batch_num, w_is_dir=str2bool(args.w_is_dir),
+        w_batch_num=args.w_batch_num, position_file=args.positions,
+        is_recursive=str2bool(args.recursively), stats=stats)
+    if errors and errors == stats["inputs"]:
+        print(f"extract: all {errors} fast5 files failed", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main_call_mods(args) -> None:
     display_args(args)
-    from ..core.config import FeatureConfig, ModelConfig
+    from ..core.config import ModelConfig
     from ..runtime.caller import run_call_mods
-    feature_cfg = FeatureConfig(is_dna=str2bool(args.is_dna))
+    feature_cfg = _feature_cfg_from_args(args)
     override = None
     if args.is_cnn is not None:
         override = ModelConfig(
@@ -39,7 +68,10 @@ def main_call_mods(args) -> None:
                   feature_cfg, batch_size=args.batch_size,
                   f5_batch_num=args.f5_batch_num,
                   model_cfg_override=override,
-                  compute_dtype=args.compute_dtype, device=args.device)
+                  compute_dtype=args.compute_dtype, device=args.device,
+                  nproc=args.nproc, reference_path=args.reference_path,
+                  position_file=args.positions,
+                  is_recursive=str2bool(args.recursively))
 
 
 def main_train(args) -> None:
@@ -83,6 +115,48 @@ def main_denoise(args) -> None:
     denoise(args.train_file, mcfg, dcfg, device=args.device)
 
 
+def _add_fast5_args(p, with_methy_label: bool = True) -> None:
+    """The featurizer's flags (the JAX CLI's, cli/main.py:267-310)."""
+    grp = p.add_argument_group("FAST5_EXTRACTION")
+    grp.add_argument("--recursively", "-r", type=str, default="yes",
+                     help="is to find fast5 files from fast5_dir recursively. "
+                          "default true, t, yes, 1")
+    grp.add_argument("--corrected_group", type=str,
+                     default="RawGenomeCorrected_000",
+                     help="the corrected_group of fast5 files after tombo "
+                          "re-squiggle. default RawGenomeCorrected_000")
+    grp.add_argument("--basecall_subgroup", type=str,
+                     default="BaseCalled_template",
+                     help="the corrected subgroup of fast5 files. "
+                          "default BaseCalled_template")
+    grp.add_argument("--is_dna", type=str, default="yes",
+                     help="whether the fast5 files are from a DNA sample. "
+                          "set no for RNA. default yes")
+    grp.add_argument("--normalize_method", type=str,
+                     choices=["mad", "zscore"], default="mad",
+                     help="read-level signal normalization. default mad")
+    if with_methy_label:
+        grp.add_argument("--methy_label", type=int, choices=[1, 0],
+                         default=1,
+                         help="label of the interested modified bases "
+                              "(training). default 1")
+    grp.add_argument("--motifs", type=str, default="CG",
+                     help="motif seq to be extracted, default CG. "
+                          "comma-separated, IUPAC allowed")
+    grp.add_argument("--mod_loc", type=int, default=0,
+                     help="0-based location of the targeted base in the "
+                          "motif, default 0")
+    grp.add_argument("--positions", type=str, default=None,
+                     help="tab-separated file (chrom, fwd pos, strand) "
+                          "restricting extracted motif sites")
+    grp.add_argument("--reference_path", type=str, default=None,
+                     help="reference genome .fa (optional)")
+    grp.add_argument("--kmer_len", "-x", type=int, default=17,
+                     help="len of kmer. default 17")
+    grp.add_argument("--cent_signals_len", "-y", type=int, default=360,
+                     help="central signal points used. default 360")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deepsignal-tpu-torch",
@@ -90,10 +164,29 @@ def build_parser() -> argparse.ArgumentParser:
                     "state from Oxford Nanopore reads, in PyTorch on CUDA")
     subparsers = parser.add_subparsers(title="modules", dest="command")
 
+    p = subparsers.add_parser(
+        "extract",
+        description="extract features from corrected (tombo) fast5s for "
+                    "training or testing (needs h5py)")
+    p.add_argument("--fast5_dir", "-i", type=str, required=True,
+                   help="the directory of fast5 files")
+    _add_fast5_args(p)
+    p.add_argument("--write_path", "-o", type=str, required=True,
+                   help="file path to save the features")
+    p.add_argument("--w_is_dir", type=str, default="no",
+                   help="save features into multiple files in a dir")
+    p.add_argument("--w_batch_num", type=int, default=200,
+                   help="batches per file when --w_is_dir is true")
+    p.add_argument("--nproc", "-p", type=int, default=1,
+                   help="number of processes, default 1")
+    p.add_argument("--f5_batch_num", type=int, default=50,
+                   help="fast5 files per worker batch, default 50")
+    p.set_defaults(func=main_extract)
+
     p = subparsers.add_parser("call_mods", description="call modifications")
     p.add_argument("--input_path", "-i", type=str, required=True,
-                   help="feature TSV from extract (fast5 input is not yet "
-                        "ported)")
+                   help="feature TSV from extract, or a fast5 directory "
+                        "(needs h5py)")
     p.add_argument("--model_path", "-m", type=str, required=True,
                    help="checkpoint directory of the trained model")
     p.add_argument("--result_file", "-o", type=str, required=True,
@@ -108,8 +201,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override: model contains BiLSTM module")
     p.add_argument("--is_base", type=str, default=None,
                    help="override: BiLSTM takes base features")
+    p.add_argument("--nproc", "-p", type=int, default=2,
+                   help="number of processes for a fast5 directory (one "
+                        "main, the rest extract workers), default 2")
     p.add_argument("--f5_batch_num", type=int, default=50,
-                   help="reads per feature batch, default 50")
+                   help="reads/files per batch, default 50")
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["float32", "bfloat16"],
                    help="bfloat16 = fast path (default), float32 = "
@@ -117,13 +213,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device, default cuda; 'cpu' runs the plain "
                         "versions of the kernels")
-    p.add_argument("--is_dna", type=str, default="yes",
-                   help="whether the features come from a DNA sample; set "
-                        "no for RNA. default yes")
-    p.add_argument("--kmer_len", "-x", type=int, default=17,
-                   help="len of kmer. default 17")
-    p.add_argument("--cent_signals_len", "-y", type=int, default=360,
-                   help="central signal points used. default 360")
+    _add_fast5_args(p, with_methy_label=False)
     p.set_defaults(func=main_call_mods)
 
     p = subparsers.add_parser(
@@ -195,8 +285,7 @@ def main(argv=None) -> int:
     if getattr(args, "func", None) is None:
         parser.print_help()
         return 1
-    args.func(args)
-    return 0
+    return args.func(args) or 0
 
 
 if __name__ == "__main__":

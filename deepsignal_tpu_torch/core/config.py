@@ -10,6 +10,7 @@ has no use for them, so ``ModelConfig.from_dict`` drops them and the port's
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 # JAX-only knobs found in checkpoints written by deepsignal_tpu
 JAX_ONLY_KEYS = ("matmul_precision", "lstm_impl")
@@ -17,9 +18,29 @@ JAX_ONLY_KEYS = ("matmul_precision", "lstm_impl")
 
 @dataclasses.dataclass
 class FeatureConfig:
-    """The featurizer field that call_mods reads on feature-TSV input."""
+    """Featurizer knobs (deepsignal/deepsignal.py:183-206 defaults).
 
+    The reference subsamples an oversized middle base with the unseeded
+    ``random.sample`` (extract_features.py:166-168); as in the JAX package
+    the draw is seeded per read from ``central_sample_seed``, so extraction
+    is reproducible (``None`` restores the reference's unseeded draw)."""
+
+    kmer_len: int = 17
+    cent_signals_len: int = 360
+    motifs: str = "CG"
+    mod_loc: int = 0
+    methy_label: int = 1
+    normalize_method: str = "mad"      # "mad" | "zscore"
     is_dna: bool = True
+    corrected_group: str = "RawGenomeCorrected_000"
+    basecall_subgroup: str = "BaseCalled_template"
+    central_sample_seed: Optional[int] = 1234
+
+    def __post_init__(self):
+        if self.kmer_len % 2 == 0:
+            raise ValueError("kmer_len must be odd")  # extract_features.py:218-219
+        if self.normalize_method not in ("mad", "zscore"):
+            raise ValueError("normalize_method must be 'mad' or 'zscore'")
 
 
 @dataclasses.dataclass

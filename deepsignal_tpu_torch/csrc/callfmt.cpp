@@ -151,9 +151,10 @@ int64_t ds_format_call_block(const char* info, const int64_t* offs,
 }
 
 // The contiguous same-read runs over the n sampleinfo strings (read name =
-// the 5th tab field, empty when a string has fewer than 4 tabs).  Writes
-// [first_start, first_end, last_start, last_end] (byte offsets into info
-// of the first and the last row's read name) and returns the run count.
+// the 5th of the 6 tab-separated fields).  Writes [first_start, first_end,
+// last_start, last_end] (byte offsets into info of the first and the last
+// row's read name) and returns the run count, or -(i + 1) when string i has
+// fewer than 6 fields.
 int64_t ds_count_read_runs(const char* info, const int64_t* offs, int64_t n,
                            int64_t* names) {
   names[0] = names[1] = names[2] = names[3] = 0;
@@ -170,6 +171,7 @@ int64_t ds_count_read_runs(const char* info, const int64_t* offs, int64_t n,
     }
     const char* q = p;
     while (q < end && *q != '\t') q++;
+    if (tabs < 4 || q == end) return -(i + 1);
     const int64_t len = q - p;
     if (prev == nullptr || len != prev_len ||
         memcmp(p, prev, static_cast<size_t>(len)) != 0) {

@@ -85,8 +85,12 @@ def count_read_runs_plain(sampleinfo: list):
     runs = 0
     prev = None
     first = ""
-    for s in sampleinfo:
-        name = s.split("\t", 5)[4]
+    for i, s in enumerate(sampleinfo):
+        fields = s.split("\t", 5)
+        if len(fields) < 6:
+            raise ValueError(f"sampleinfo {i} has fewer than 6 fields: "
+                             f"{s!r}")
+        name = fields[4]
         if name != prev:
             runs += 1
             if runs == 1:
@@ -102,8 +106,8 @@ def native_checked() -> None:
     package's import-time check: positional and scientific, their
     boundaries, subnormals, signed zeros and the specials), the float32
     next to the installed numpy's positional range, and 4096 seeded random
-    bit patterns.  Raises RuntimeError on any difference; nothing falls
-    back.  The check's own calls are not counted as calls of the path."""
+    bit patterns; and the read-run counter on rows with and without their 6
+    fields.  Raises RuntimeError on any difference; nothing falls back.  The check's own calls are not counted as calls of the path."""
     lo, hi = native.positional_range()
     edges = [np.nextafter(np.float32(v), np.float32(to)) for v in (lo, hi)
              for to in (0, np.inf)]
@@ -139,6 +143,15 @@ def native_checked() -> None:
         if got != want:
             raise RuntimeError(f"the native read-run count differs from the "
                                f"plain one: {got} != {want}")
+        for short in (["chr1\t7\t+\t7", "a\tb\tc\td\tr1\tt"],
+                      ["a\tb\tc\td\tr1\tt", "a\tb\tc\td\tr1"]):
+            try:
+                got = native.count_read_runs(short)
+            except ValueError:
+                continue
+            raise RuntimeError(f"the native read-run count takes a "
+                               f"sampleinfo without its 6 fields, which the "
+                               f"plain one refuses: {short!r} -> {got}")
     finally:
         for fn, n in zip(counted, calls):
             fn.calls = n

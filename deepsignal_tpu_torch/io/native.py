@@ -5,14 +5,18 @@
   ``native/fastparse.cpp``;
 - ``format_call_block``, ``count_read_runs``, ``repr_f32``: the call-row
   formatter (``csrc/callfmt.cpp``), a copy of the call-row half of its
-  ``native/featkernel.cpp``.
+  ``native/featkernel.cpp``;
+- ``segment_stats``, ``normalize_mad``, ``format_rows6``: the featurizer
+  kernels (``csrc/featkernel.cpp``), a copy of the extract half of that
+  file.
 
-Both libraries are built with the host compiler at first use
+The libraries are built with the host compiler at first use
 (``ops/cuda/build.py``) and loaded with ctypes; a failed build raises.
 Every output is allocated here and checked for size before a pointer goes
-to the C side.  ``parse_feature_block``, ``format_call_block`` and
-``count_read_runs`` count their calls (``.calls``), so a run can show that
-it went through the native code.  This module imports numpy only.
+to the C side.  ``parse_feature_block``, ``format_call_block``,
+``count_read_runs``, ``segment_stats`` and ``format_rows6`` count their
+calls (``.calls``), so a run can show that it went through the native
+code.  This module imports numpy only.
 """
 
 from __future__ import annotations
@@ -31,8 +35,11 @@ _F64 = ctypes.c_double
 
 PARSER_LIBRARY = "fastparse"
 FORMATTER_LIBRARY = "callfmt"
+FEATURIZER_LIBRARY = "featkernel"
 # the longest str(np.float32) the formatter writes (csrc/callfmt.cpp)
 MAX_REPR = 24
+# the longest str(np.float64) the featurizer writes (csrc/featkernel.cpp)
+MAX_REPR6 = 32
 
 _PARSE_ERRORS = {1: "malformed feature row at block line %d",
                  2: "malformed numeric field at block line %d",
@@ -65,31 +72,100 @@ def _callfmt() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _featkernel() -> ctypes.CDLL:
+    lib = load_library(FEATURIZER_LIBRARY)
+    lib.ds_segment_stats.argtypes = [_PTR, _I64, _PTR, _PTR, _I64, _PTR,
+                                     _PTR]
+    lib.ds_segment_stats.restype = _I64
+    lib.ds_normalize_mad.argtypes = [_PTR, _I64, _PTR]
+    lib.ds_normalize_mad.restype = None
+    lib.ds_format_rows6.argtypes = [_PTR, _I64, _I64, _PTR, _I64, _PTR, _F64,
+                                    _F64]
+    lib.ds_format_rows6.restype = _I64
+    return lib
+
+
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
 @functools.cache
-def positional_range() -> tuple:
-    """(lo, hi): the installed numpy prints a float32 scalar in positional
-    notation for lo <= |x| < hi and in scientific notation elsewhere.
-    numpy 2.0 gives (1e-4, 1e16), the range the JAX package's formatter
-    hardcodes; later versions switch to scientific notation lower (1e8
-    printed as "1e+08").  Found at powers of ten (float32 holds 10**k exactly
-    for k <= 10; just above 10**-k for the lower bound); the formatter's
-    check at first use holds the result against numpy on random values."""
+def positional_range(dtype=np.float32) -> tuple:
+    """(lo, hi): the installed numpy prints a scalar of ``dtype`` (float32
+    or float64) in positional notation for lo <= |x| < hi and in scientific
+    notation elsewhere.  numpy 2.0 gives (1e-4, 1e16) for both, the range
+    the JAX package's formatters hardcode; later versions switch float32 to
+    scientific notation lower (1e8 printed as "1e+08").  Found at powers of
+    ten (float32 holds 10**k exactly for k <= 10; just above 10**-k for the
+    lower bound); the formatters' checks at first use hold the result
+    against numpy."""
     def positional(x) -> bool:
         return "e" not in str(x)
 
     hi = next((10.0 ** k for k in range(1, 17)
-               if not positional(np.float32(10.0 ** k))), 1e16)
+               if not positional(dtype(10.0 ** k))), 1e16)
     lo = 1.0
     for k in range(1, 13):
-        just_above = np.nextafter(np.float32(10.0 ** -k), np.float32(1))
-        if not positional(just_above):
+        if not positional(np.nextafter(dtype(10.0 ** -k), dtype(1))):
             break
         lo = 10.0 ** -k
     return lo, hi
+
+
+def segment_stats(norm: np.ndarray, starts: np.ndarray, lengths: np.ndarray):
+    """(means, stds) float64 [m]: np.mean and np.std of every segment
+    ``norm[starts[i]:starts[i] + lengths[i]]``, in numpy's summation order.
+    A segment that is empty or runs outside ``norm`` raises ValueError."""
+    x = np.ascontiguousarray(norm, dtype=np.float64)
+    st = np.ascontiguousarray(starts, dtype=np.int64)
+    ln = np.ascontiguousarray(lengths, dtype=np.int64)
+    if st.shape != ln.shape:
+        raise ValueError("starts/lens length mismatch")
+    m = st.size
+    means = np.empty(m, np.float64)
+    stds = np.empty(m, np.float64)
+    bad = _featkernel().ds_segment_stats(_ptr(x), x.size, _ptr(st), _ptr(ln),
+                                         m, _ptr(means), _ptr(stds))
+    if bad:
+        i = bad - 1
+        raise ValueError(f"segment {i} out of bounds (start={st[i]} "
+                         f"len={ln[i]} n={x.size})")
+    segment_stats.calls += 1
+    return means, stds
+
+
+def normalize_mad(signals: np.ndarray) -> np.ndarray:
+    """MAD normalization of a rescaled float64 signal, rounded to 6
+    decimals, as numpy's median computes it."""
+    x = np.ascontiguousarray(signals, dtype=np.float64).ravel()
+    out = np.empty_like(x)
+    _featkernel().ds_normalize_mad(_ptr(x), x.size, _ptr(out))
+    return out
+
+
+def format_rows6(x) -> list:
+    """Each row of the [S, K] float64 matrix ``x`` (values already rounded
+    to 6 decimals) as ``",".join(str(v) for v in row)``, in the installed
+    numpy's float64 positional range (``positional_range``)."""
+    lo, hi = positional_range(np.float64)
+    if not (1e-12 <= lo and hi <= 1e16):  # what MAX_REPR6 holds
+        raise ValueError(f"positional range {lo}, {hi} outside 1e-12..1e16")
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    if x.ndim != 2:
+        raise ValueError("format_rows6 expects a 2-D array")
+    s, k = x.shape
+    cap = s * k * (MAX_REPR6 + 1)
+    out = np.empty(max(cap, 1), np.uint8)
+    ends = np.empty(s, np.int64)
+    w = _featkernel().ds_format_rows6(_ptr(x), s, k, _ptr(out), cap,
+                                      _ptr(ends), lo, hi)
+    if w < 0:
+        raise RuntimeError("ds_format_rows6: output buffer too small")
+    format_rows6.calls += 1
+    text = out[:w].tobytes().decode("ascii")
+    starts = [0, *ends[:-1].tolist()]
+    return [text[a:b] for a, b in zip(starts, ends.tolist())]
 
 
 def parse_feature_block(block: bytes, kmer_len: int, signal_len: int):
@@ -164,11 +240,15 @@ def format_call_block(sampleinfo: list, p0, p1, pred, kmers,
 
 def count_read_runs(sampleinfo: list) -> tuple:
     """(n_runs, first_read, last_read) over the contiguous same-read runs of
-    a batch's sampleinfo (read name = the 5th tab field)."""
+    a batch's sampleinfo (read name = the 5th tab field); a string without
+    its 6 tab-separated fields raises ValueError."""
     info, offs = _join(sampleinfo)
     names = np.zeros(4, np.int64)
     runs = _callfmt().ds_count_read_runs(info, _ptr(offs), len(sampleinfo),
                                          _ptr(names))
+    if runs < 0:
+        raise ValueError(f"sampleinfo {-runs - 1} has fewer than 6 fields: "
+                         f"{sampleinfo[-runs - 1]!r}")
     count_read_runs.calls += 1
     a, b, c, d = names.tolist()
     return runs, info[a:b].decode(), info[c:d].decode()
@@ -199,3 +279,5 @@ def repr_f32(x, positional=None) -> list:
 parse_feature_block.calls = 0
 format_call_block.calls = 0
 count_read_runs.calls = 0
+segment_stats.calls = 0
+format_rows6.calls = 0

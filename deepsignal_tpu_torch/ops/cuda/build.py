@@ -22,7 +22,9 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "deepsignal_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# no -ffast-math, -march=native or contraction into FMA: the featurizer's
+# sums must round as numpy's do (csrc/featkernel.cpp)
+CXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 _loaded: dict = {}
 

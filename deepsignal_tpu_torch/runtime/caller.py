@@ -28,7 +28,8 @@ from ..io.calls_codec import count_read_runs, format_call_block
 from ..io.feature_codec import FeatureBatch
 from ..models.deepsignal import model_from_state_dict, predictions
 from ..train.checkpoints import load_checkpoint, variables_to_state_dict
-from .pipeline import stream_file_feature_batches
+from .pipeline import (stream_fast5_feature_batches,
+                       stream_file_feature_batches)
 
 # The shipped call_mods compute dtype, as in the JAX package; pass
 # compute_dtype="float32" for the reference-parity path.
@@ -213,10 +214,19 @@ def call_mods_on_batches(caller: ModCaller, batches: Iterable[FeatureBatch],
 def run_call_mods(input_path: str, model_path: str, result_file: str,
                   feature_cfg=None, batch_size: int = 4096,
                   f5_batch_num: int = 50, model_cfg_override=None,
-                  compute_dtype=None, device=None) -> int:
-    """call_mods on a feature TSV (call_modifications.py:417-495): score
-    every row with the checkpoint at ``model_path`` and write the 10-column
-    call TSV.  Returns the call count.
+                  compute_dtype=None, device=None, nproc: int = 2,
+                  reference_path=None, position_file=None,
+                  is_recursive: bool = True) -> int:
+    """call_mods (call_modifications.py:417-495): score every site of
+    ``input_path`` with the checkpoint at ``model_path`` and write the
+    10-column call TSV.  Returns the call count.
+
+    ``input_path`` is a feature TSV, parsed in a background reader process,
+    or a directory of tombo-resquiggled fast5 files (which needs h5py),
+    featurized by ``nproc - 1`` extract workers (at least one) in batches
+    of ``f5_batch_num`` files, with ``feature_cfg``, the contig lengths of
+    ``reference_path`` and the sites of ``position_file``.  Either starts
+    first, so that its start runs beside the checkpoint load.
 
     ``device=None`` runs on ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the CPU.  ``compute_dtype=None`` selects
@@ -224,15 +234,16 @@ def run_call_mods(input_path: str, model_path: str, result_file: str,
     reference-parity path."""
     start = time.time()
     device = resolve_device(device)
-    if os.path.isdir(input_path):
-        raise NotImplementedError(
-            "fast5-directory input is not yet ported to deepsignal_tpu_torch;"
-            " extract a feature TSV first and pass that")
     feature_cfg = feature_cfg or FeatureConfig()
-    # the TSV is parsed in a background reader process, beside the device;
-    # it starts first, so that its start runs beside the checkpoint load
-    batches = stream_file_feature_batches(os.path.abspath(input_path),
-                                          f5_batch_num, background=True)
+    input_path = os.path.abspath(input_path)
+    if os.path.isdir(input_path):
+        batches = stream_fast5_feature_batches(
+            input_path, feature_cfg, reference_path=reference_path,
+            nproc=nproc, f5_batch_num=f5_batch_num,
+            position_file=position_file, is_recursive=is_recursive)
+    else:
+        batches = stream_file_feature_batches(input_path, f5_batch_num,
+                                              background=True)
     try:
         cfg, variables = load_checkpoint(os.path.abspath(model_path),
                                          cfg=model_cfg_override)

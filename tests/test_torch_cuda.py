@@ -282,3 +282,152 @@ def test_denoise_runs_both_kernels_on_the_card(cuda_device, tmp_path):
     assert bilstm_encoder_fused.launches - fused == 2 * 4
     labels = [int(line.rsplit("\t", 1)[1]) for line in open(out)]
     assert 0 < sum(labels) < len(labels)
+
+
+# --------------------------------------------------------------------------
+# the reads path and the golden float32 calls
+
+
+def _tiny():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_tiny
+    return torch_tiny
+
+
+# the card's float32 calls against the JAX package's on the CPU: the
+# fused-encoder kernel's float32 tolerance (2e-5 on h) carried through the
+# joint head, with a margin; every golden call has |p1 - p0| >= 0.015, far
+# outside it, so the labels must be equal
+GOLDEN_PROB_TOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_card_f32_calls_match_the_golden_jax_calls(cuda_device, tmp_path):
+    from deepsignal_tpu_torch.runtime.caller import run_call_mods
+    from deepsignal_tpu_torch.train.checkpoints import (
+        save_checkpoint, state_dict_to_variables)
+    tt = _tiny()
+    cfg = tt.tiny_cfg()
+    ckpt = save_checkpoint(str(tmp_path / "m.ckpt"), cfg,
+                           state_dict_to_variables(cfg, tt.tiny_state_dict()))
+    before = bilstm_encoder_fused.launches
+    run_call_mods(tt.FEATURES, ckpt, str(tmp_path / "calls.tsv"),
+                  batch_size=16, f5_batch_num=3, compute_dtype="float32")
+    assert bilstm_encoder_fused.launches - before == -(-tt.N_ROWS // 16)
+    got = [r.split("\t") for r in
+           (tmp_path / "calls.tsv").read_text().splitlines()]
+    with open(tt.CALLS_F32) as f:
+        want = [r.split("\t") for r in f.read().splitlines()]
+    assert len(got) == len(want) == tt.N_ROWS
+    for g, w in zip(got, want):
+        assert g[:6] + g[8:] == w[:6] + w[8:]
+    dprob = np.abs(np.float32([g[6:8] for g in got])
+                   - np.float32([w[6:8] for w in want])).max()
+    print(f"card vs the golden JAX calls, float32: max |dprob| {dprob:.3e}, "
+          f"{sum(g == w for g, w in zip(got, want))}/{tt.N_ROWS} lines "
+          f"byte-identical")
+    assert dprob <= GOLDEN_PROB_TOL
+
+
+def _reads(n, bases, seed):
+    from deepsignal_tpu_torch.io.fast5 import synthetic_read
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        seq = "".join(np.array(list("ACGT"))[rng.integers(0, 4, bases)])
+        lengths = rng.integers(3, 22, size=bases)
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        raw = rng.integers(380, 920, size=int(lengths.sum())).astype(np.int16)
+        out.append(synthetic_read(f"r{i}", raw, starts, lengths, seq, "chr1",
+                                  bases * i, "+-"[i % 2]))
+    return out
+
+
+@pytest.mark.cuda
+def test_reads_to_calls_launch_the_encoder_kernel(cuda_device, tmp_path):
+    """6 reads of 600 bases featurized by 2 extract workers and called on
+    the card with the tiny model, float32: K1 once per device batch, and the
+    calls those of the same stream on the CPU."""
+    from deepsignal_tpu_torch.core.config import FeatureConfig
+    from deepsignal_tpu_torch.runtime.caller import (ModCaller,
+                                                     call_mods_on_batches)
+    from deepsignal_tpu_torch.runtime.pipeline import \
+        stream_read_feature_batches
+    from deepsignal_tpu_torch.train.checkpoints import \
+        state_dict_to_variables
+    tt = _tiny()
+    cfg = tt.tiny_cfg()
+    variables = state_dict_to_variables(cfg, tt.tiny_state_dict())
+    fcfg = FeatureConfig(kmer_len=tt.K, cent_signals_len=tt.S)
+    reads = _reads(6, 600, seed=12)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        stats = {}
+        stream = stream_read_feature_batches(reads, fcfg, nproc=3,
+                                             f5_batch_num=2, stats=stats)
+        caller = ModCaller(cfg, variables, batch_size=64, device=dev)
+        before = bilstm_encoder_fused.launches
+        try:
+            n = call_mods_on_batches(caller, stream,
+                                     str(tmp_path / f"{dev}.tsv"))
+        finally:
+            stream.close()
+        torch.cuda.synchronize()
+        launched = bilstm_encoder_fused.launches - before
+        assert stats["errors"] == stats["lost_batches"] == 0
+        assert launched == (-(-n // 64) if dev == "cuda" else 0)
+        out[dev] = sorted(r.split("\t") for r in
+                          (tmp_path / f"{dev}.tsv").read_text().splitlines())
+    assert len(out["cuda"]) == len(out["cpu"]) > 64
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert g[:6] + g[9:] == w[:6] + w[9:]
+        p, q = np.float32(g[6:8]), np.float32(w[6:8])
+        np.testing.assert_allclose(p, q, rtol=0, atol=GOLDEN_PROB_TOL)
+        if abs(q[1] - q[0]) > 2 * GOLDEN_PROB_TOL:
+            assert g[8] == w[8]
+
+
+@pytest.mark.cuda
+def test_native_featurizer_matches_plain_on_the_card_host(cuda_device):
+    """On the card's machine: the native segment statistics and 6-decimal
+    text give the plain version's rows byte for byte, and the golden
+    fixture's rows are those of tests/golden/features_golden.tsv."""
+    import os
+    from unittest import mock
+
+    from deepsignal_tpu_torch.core.config import FeatureConfig
+    from deepsignal_tpu_torch.featurize import extractor, signal
+    from deepsignal_tpu_torch.io.fast5 import synthetic_read
+    reads = _reads(3, 1500, seed=13)
+    cfg = FeatureConfig()
+    native_rows = [r for read in reads for r in
+                   extractor.extract_read_features(read, ["CG"], cfg)
+                   .to_tsv_rows()]
+    with mock.patch.object(extractor, "segment_stats",
+                           signal.segment_stats_plain):
+        plain_rows = [r for read in reads for r in
+                      extractor.extract_read_features(read, ["CG"], cfg)
+                      .to_tsv_rows_plain()]
+    assert len(native_rows) > 100 and native_rows == plain_rows
+
+    rng = np.random.default_rng(424242)
+    genome = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 3000)])
+    golden = []
+    for i, strand in enumerate(["+", "-", "+"]):
+        seq = genome[700 * i:700 * i + 250]
+        lengths = rng.integers(3, 22, size=len(seq))
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        raw = rng.integers(380, 920, size=int(lengths.sum()) + 7)
+        golden.append(synthetic_read(f"golden-{i}", raw, starts, lengths, seq,
+                                     "chrG", 700 * i, strand,
+                                     read_start_rel_to_raw=4))
+    feats, errors = extractor.extract_fast5_batch(
+        golden, ["CG"], FeatureConfig(central_sample_seed=99),
+        chrom2len={"chrG": 3000})
+    with open(os.path.join(os.path.dirname(__file__), "golden",
+                           "features_golden.tsv")) as f:
+        want = f.read().splitlines()
+    assert errors == 0
+    assert [r for f in feats for r in f.to_tsv_rows()] == want

@@ -25,7 +25,9 @@ def _port_modules():
 def test_port_modules_import_without_jax():
     modules = _port_modules()
     for name in ("ops.cuda.lstm", "io.native", "runtime.pipeline",
-                 "tools.dataset", "train.denoise"):
+                 "tools.dataset", "train.denoise", "io.fast5", "io.fasta",
+                 "featurize.extractor", "featurize.signal",
+                 "featurize.central"):
         assert f"deepsignal_tpu_torch.{name}" in modules
     code = ("import sys\n"
             f"for m in {modules!r}:\n"
@@ -44,13 +46,36 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"\bjax\b|\bdeepsignal_tpu\.")
     files = [p for p in PORT.rglob("*")
              if p.suffix in (".py", ".cu", ".cuh", ".cpp", ".h")]
-    assert {p.name for p in files} >= {"fastparse.cpp", "callfmt.cpp"}
+    assert {p.name for p in files} >= {"fastparse.cpp", "callfmt.cpp",
+                                       "featkernel.cpp"}
     files.append(REPO / "chip_smoke.py")
     offenders = [f"{p.relative_to(REPO)}:{i}"
                  for p in files
                  for i, line in enumerate(p.read_text().splitlines(), 1)
                  if pattern.search(line)]
     assert offenders == []
+
+
+def test_port_modules_import_without_h5py():
+    """With h5py blocked, every port module imports, and reading or writing
+    a fast5 file raises the ImportError that names h5py."""
+    code = ("import sys\n"
+            "sys.modules['h5py'] = None\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    __import__(m)\n"
+            "from deepsignal_tpu_torch.io import fast5\n"
+            "for call in (lambda: fast5.read_resquiggled_fast5('x.fast5'),\n"
+            "             lambda: fast5.write_synthetic_fast5(\n"
+            "                 'x.fast5', 'r', [1], [0], [1], 'A', 'c', 0, '+')):\n"
+            "    try:\n"
+            "        call()\n"
+            "    except ImportError as e:\n"
+            "        print(e)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 2 and all("needs h5py" in line for line in lines)
 
 
 def test_cli_module_does_not_import_torch():

@@ -233,10 +233,16 @@ def test_count_read_runs_matches_jax_and_plain():
     assert got[0] == 1 + sum(a != b for a, b in zip(reads, reads[1:]))
     assert calls_codec.count_read_runs([]) == \
         jax_featkernel.count_read_runs([]) == (0, "", "")
-    # fewer than four tabs: an empty read name, as in the JAX native code
-    short = ["a\tb", "a\tb\tc\td\tr1", "x"]
-    assert native.count_read_runs(short) == \
-        jax_featkernel.count_read_runs(short)
+    # a sampleinfo without its 6 fields: both refuse it (the JAX native code
+    # reads an empty or a partial read name there, and its plain version
+    # raises IndexError)
+    for short in (["a\tb", "a\tb\tc\td\tr1", "x"],
+                  ["chr1\t7\t+\t7", "a\tb\tc\td\tr1\tt"],
+                  ["a\tb\tc\td\tr1\tt", "a\tb\tc\td\tr1"]):
+        with pytest.raises(ValueError, match="fewer than 6 fields"):
+            native.count_read_runs(short)
+        with pytest.raises(ValueError, match="fewer than 6 fields"):
+            calls_codec.count_read_runs_plain(short)
 
 
 def test_a_native_formatter_that_differs_raises(monkeypatch):
@@ -254,6 +260,39 @@ def test_a_native_formatter_that_differs_raises(monkeypatch):
         monkeypatch.undo()
         calls_codec.native_checked.cache_clear()
     assert calls_codec.count_read_runs(["a\tb\tc\td\te\tf"]) == (1, "e", "e")
+
+
+def test_a_read_run_counter_that_takes_short_rows_raises(monkeypatch):
+    # the counter as the JAX native code has it: an empty or partial read
+    # name for a sampleinfo without its 6 fields
+    def lenient(sampleinfo):
+        names = [(s.split("\t") + [""] * 5)[4] for s in sampleinfo]
+        runs = sum(a != b for a, b in zip([None] + names, names))
+        return runs, names[0] if names else "", names[-1] if names else ""
+    lenient.calls = 0
+    monkeypatch.setattr(native, "count_read_runs", lenient)
+    calls_codec.native_checked.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="without its 6 fields"):
+            calls_codec.native_checked()
+    finally:
+        monkeypatch.undo()
+        calls_codec.native_checked.cache_clear()
+
+
+def test_package_data_ships_every_native_source():
+    import pathlib
+    import tomllib
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    with open(repo / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    csrc = repo / "deepsignal_tpu_torch" / "csrc"
+    shipped = {p for pattern in data["deepsignal_tpu_torch"]
+               for p in (repo / "deepsignal_tpu_torch").glob(pattern)}
+    sources = set(csrc.glob("*.cu")) | set(csrc.glob("*.cpp"))
+    assert {"fastparse.cpp", "callfmt.cpp", "featkernel.cpp",
+            "lstm_encoder.cu"} <= {p.name for p in sources}
+    assert sources <= shipped
 
 
 def test_a_positional_range_other_than_numpys_raises(monkeypatch):
