@@ -22,7 +22,7 @@ library call that computes the same function (the scan also in its parts
 and through its streaming variant, at both train depths).
 It checks the kernels' gradients against autograd through their plain
 versions, and that a batch the fused encoder does not take runs through the
-per-layer kernel.  Then it drives the four main paths at full width:
+per-layer kernel.  Then it drives the main paths at full width:
 
 - ``call_mods`` end to end through ``run_call_mods``, with random seeded
   weights, on a synthetic feature TSV, in bfloat16 and in float32: the TSV
@@ -46,6 +46,21 @@ per-layer kernel.  Then it drives the four main paths at full width:
   device's idle share.  ``run_call_mods`` on a fast5 directory raises the
   ImportError that names h5py where h5py is missing, and calls 20
   synthetic files where it is present;
+- TF1 import: the published model's name space
+  (``tests/fixtures/tf1_variables_bn17_sn360.json``) with seeded values and
+  the Adam slots and bookkeeping of a ``tf.train.Saver`` checkpoint, as
+  .npz, through ``import_tf1_npz`` and ``save_checkpoint`` (the state dict
+  equal to the slot-free import's bit for bit), then ``run_call_mods`` on
+  the feature TSV in bfloat16 (with ``profile_dir``: the Chrome trace must
+  name K1's kernel once per launch) and float32, the first batch held
+  against the plain encoder;
+- the host tools through the port's CLI on the reads path's calls:
+  ``call_freq`` (TSV and bedMethyl, prob_cf 0 and 0.2), ``combine_freq``,
+  ``combine_strands`` against the contig the reads tile, ``runner
+  --dry_run`` and ``runner``'s in-process ``call_mods`` stage alone on the
+  feature TSV (K1 once per device batch); after training, ``evaluate`` on the scored validation calls
+  split by their labels and ``visualize_log`` on the float32 logs (or the
+  RuntimeError where matplotlib is missing);
 - ``denoise`` through ``denoise()`` with ``DenoiseConfig``'s RNN-only model
   on a synthetic labelled set whose positives are 30% mislabelled, one
   iteration of one round of one epoch: every scan launch of a train step
@@ -96,6 +111,10 @@ EXTRACT_NPROC = 4
 FEATURIZE_READS = 8
 FAST5_FILES = 20
 READS_SEED, FAST5_SEED = 606, 607
+# the TF1 phase: the published name space (581 variables) with seeded
+# values; evaluate's shuffle
+TF1_VARIABLES = 581
+TF1_SEED, EVAL_SEED = 7, 608
 # the train path: batch 512 (TrainConfig's default), 12 train batches and 2
 # validation batches (the second one padded), a sweep every 6 steps
 TRAIN_B = 512
@@ -1431,6 +1450,326 @@ def check_fast5_entry(ckpt: str, work: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# TF1 import, the profiled call, and the host tools on the reads path's calls
+
+
+def tf1_arrays(seed: int) -> dict:
+    """The published model's TF1 name space
+    (tests/fixtures/tf1_variables_bn17_sn360.json, 581 variables) with
+    seeded fan-in-scaled values, drawn as tests/test_tf1_value_parity.py
+    draws them."""
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "tf1_variables_bn17_sn360.json")) as f:
+        shapes = json.load(f)["variables"]
+    rng = np.random.default_rng(seed)
+    arrs = {}
+    for name, shape in shapes.items():
+        if name.endswith("moving_variance"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith("gamma"):
+            a = rng.uniform(0.8, 1.2, shape)
+        elif name.endswith(("beta", "moving_mean", "bias")):
+            a = rng.normal(0, 0.1, shape)
+        elif shape:
+            a = rng.normal(0, 1.0 / np.sqrt(max(int(np.prod(shape[:-1])), 1)),
+                           shape)
+        else:
+            a = np.zeros(shape)
+        arrs[name] = a.astype(np.float32)
+    return arrs
+
+
+def run_tf1(tsv: str, work: str) -> dict:
+    """A TF1 ``Saver`` checkpoint of the published name space, with Adam's
+    slots for every variable and ``beta1_power``, ``beta2_power`` and
+    ``global_step``, written as .npz, imported with ``import_tf1_npz`` and
+    saved with ``save_checkpoint``; its state dict equals the slot-free
+    one's bit for bit.  Then ``run_call_mods`` on the call TSV at full
+    width in bfloat16 (profiled: ``profile_dir`` set) and float32, K1
+    launched once per device batch, the first batch held against the plain
+    encoder; the trace names K1's kernel."""
+    import shutil
+
+    import torch
+
+    from deepsignal_tpu_torch.core.config import ModelConfig
+    from deepsignal_tpu_torch.core.logging import StageTimer
+    from deepsignal_tpu_torch.io.feature_codec import parse_feature_lines
+    from deepsignal_tpu_torch.models.tf1_import import (import_tf1_npz,
+                                                        import_tf1_state_dict)
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.runtime.caller import run_call_mods
+    from deepsignal_tpu_torch.train.checkpoints import (
+        ckpt_name, save_checkpoint, variables_to_state_dict)
+
+    cfg = ModelConfig()
+    timer = StageTimer()
+    folder = os.path.join(work, "tf1")
+    prof_dir = os.path.join(folder, "profile")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    with timer.stage("make"):
+        arrs = tf1_arrays(TF1_SEED)
+        saver = dict(arrs)
+        for name, a in arrs.items():
+            saver[name + "/Adam"] = a + 1
+            saver[name + "/Adam_1"] = a * a
+        saver.update(beta1_power=np.float32(0.9 ** 1000),
+                     beta2_power=np.float32(0.999 ** 1000),
+                     global_step=np.int64(1000))
+    npz = os.path.join(folder, "deepsignal_tf1_weights.npz")
+    with timer.stage("npz_write"):
+        np.savez(npz, **saver)
+    del saver
+    with timer.stage("import"):
+        variables = import_tf1_npz(npz, cfg)
+    with timer.stage("save_checkpoint"):
+        ckpt = save_checkpoint(os.path.join(folder, ckpt_name(
+            cfg.kmer_len, cfg.cent_signals_len, 0)), cfg, variables)
+    with timer.stage("compare"):
+        got = variables_to_state_dict(cfg, variables)
+        want = import_tf1_state_dict(arrs, cfg)
+        same = got.keys() == want.keys() and all(
+            got[k].dtype == want[k].dtype
+            and got[k].tobytes() == want[k].tobytes() for k in got)
+    check(same and len(got) == len(arrs) - 1, "tf1: the slot-bearing "
+          "import differs from the slot-free one")
+    del arrs, variables, got, want
+    with open(tsv) as f:
+        fb = parse_feature_lines([next(f) for _ in range(B)])
+    res = {"variables": TF1_VARIABLES, "npz_bytes": os.path.getsize(npz)}
+    for dtype_name in ("bfloat16", "float32"):
+        out_path = os.path.join(folder, f"calls_{dtype_name}.tsv")
+        profiled = dtype_name == "bfloat16"
+        bilstm_encoder_fused.launches = 0
+        printed = io.StringIO()
+        with timer.stage(f"call_mods_{dtype_name}"), \
+                contextlib.redirect_stdout(printed):
+            n = run_call_mods(tsv, ckpt, out_path, batch_size=B,
+                              compute_dtype=dtype_name,
+                              profile_dir=prof_dir if profiled else None)
+            torch.cuda.synchronize()
+        print(printed.getvalue(), end="", flush=True)
+        launches = bilstm_encoder_fused.launches
+        tag = f"tf1 {dtype_name}"
+        check(n == N_ROWS, f"{tag}: {n} calls for {N_ROWS} rows")
+        check(launches == -(-N_ROWS // B), f"{tag}: K1 launched {launches} "
+              f"times for {-(-N_ROWS // B)} device batches")
+        with open(out_path) as f:
+            rows = [line.rstrip("\n").split("\t") for line in f]
+        p = np.array([[float(r[6]), float(r[7])] for r in rows])
+        labels = np.array([int(r[8]) for r in rows])
+        check(len(rows) == N_ROWS and bool(np.isfinite(p).all())
+              and float(np.abs(p.sum(1) - 1).max()) < 1e-5,
+              f"{tag}: calls not finite or not summing to 1")
+        first = check_batch_against_plain(dtype_name, "tf1", fb, ckpt, p[:B],
+                                          labels[:B])
+        res[dtype_name] = {"launches": launches, "first_batch": first,
+                           "seconds": timer.totals[f"call_mods_{dtype_name}"],
+                           "label_1_share": float(labels.mean())}
+    traces = os.listdir(prof_dir)
+    check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"),
+          f"tf1: trace files {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    k1_events = [e for e in events if e.get("cat") == "kernel"
+                 and "lstm_encoder_kernel" in e.get("name", "")]
+    check(len(k1_events) == res["bfloat16"]["launches"],
+          f"tf1: the trace names K1's kernel {len(k1_events)} times for "
+          f"{res['bfloat16']['launches']} launches")
+    res.update(trace_kernel=k1_events[0]["name"],
+               trace_k1_us=sum(e.get("dur", 0) for e in k1_events),
+               trace_bytes=os.path.getsize(os.path.join(prof_dir,
+                                                        traces[0])),
+               stages_s=dict(timer.totals))
+    print(timer.summary(), flush=True)
+    print(f"tf1: {json.dumps(res)}", flush=True)
+    return res
+
+
+def genome_of_reads(kwargs: list) -> str:
+    """The contig the reads tile: a '+' read is its span's sequence, a '-'
+    read its reverse complement (featurize/extractor.py maps a '-' read's
+    base l to chrom_start + n - 1 - l)."""
+    from deepsignal_tpu_torch.core.constants import complement_seq
+    chrom = [""] * len(kwargs)
+    for i, kw in enumerate(sorted(kwargs, key=lambda k: k["mapped_start"])):
+        seq = kw["seq"]
+        # complement_seq reverses and complements
+        chrom[i] = seq if kw["mapped_strand"] == "+" else complement_seq(seq)
+        check(sum(map(len, chrom[:i])) == kw["mapped_start"],
+              "tools: the reads do not tile the contig")
+    return "".join(chrom)
+
+
+def cli(argv: list) -> tuple:
+    """The port's CLI on ``argv``: (its printed text, seconds)."""
+    from deepsignal_tpu_torch.cli.main import main as cli_main
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli_main(argv)
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"tools: {argv[0]} exited {rc}")
+    return printed.getvalue(), seconds
+
+
+def run_tools(work: str, ckpt: str, tsv: str) -> dict:
+    """The host tools through the port's CLI on the calls of the ``e2e
+    reads`` runs: ``call_freq`` (TSV and bedMethyl, sorted, prob_cf 0 and
+    0.2; coverage sums to the calls kept), ``combine_freq`` of the bfloat16
+    and float32 frequency files, ``combine_strands`` against the contig
+    the reads tile (no row outside its CG sites), and ``runner``: its
+    ``--dry_run`` plan printed, then its in-process stage alone
+    (``--is_resquiggled yes``) on the call TSV, K1 launched once per device
+    batch and the calls those of the bfloat16 e2e run."""
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+
+    folder = os.path.join(work, "tools")
+    os.makedirs(folder, exist_ok=True)
+    calls = {d: os.path.join(work, f"calls_reads_{d}.tsv")
+             for d in ("bfloat16", "float32")}
+    with open(calls["bfloat16"]) as f:
+        rows = [line.split("\t") for line in f]
+    res = {"calls": len(rows)}
+    for prob_cf, bed in ((0.0, False), (0.0, True), (0.2, False),
+                         (0.2, True)):
+        out = os.path.join(folder, f"freq_{prob_cf}{'.bed' if bed else '.tsv'}")
+        _, seconds = cli(["call_freq", "-i", calls["bfloat16"], "-o", out,
+                          "--prob_cf", str(prob_cf), "--sort"]
+                         + (["--bed"] if bed else []))
+        kept = sum(abs(float(r[6]) - float(r[7])) >= prob_cf for r in rows)
+        with open(out) as f:
+            freq = [line.rstrip("\n").split("\t") for line in f]
+        coverage = sum(int(r[9 if bed else 8]) for r in freq)
+        check(coverage == kept, f"call_freq prob_cf {prob_cf} bed {bed}: "
+              f"coverage {coverage} for {kept} calls kept")
+        check([(r[0], int(r[1])) for r in freq]
+              == sorted((r[0], int(r[1])) for r in freq),
+              f"call_freq prob_cf {prob_cf}: not sorted")
+        res[f"call_freq_{prob_cf}{'_bed' if bed else ''}"] = {
+            "sites": len(freq), "kept": kept, "seconds": seconds,
+            "rows_per_s": len(rows) / seconds}
+    freqs = {}
+    for d, path in calls.items():
+        freqs[d] = os.path.join(folder, f"freq_{d}.tsv")
+        cli(["call_freq", "-i", path, "-o", freqs[d]])
+    combined = os.path.join(folder, "freq_combined.tsv")
+    cli(["combine_freq", "--modsfile", freqs["bfloat16"], "--modsfile",
+         freqs["float32"], "--wfile", combined])
+    with open(combined) as f:
+        cov = sum(int(line.split("\t")[8]) for line in f)
+    check(cov == 2 * len(rows), f"combine_freq: coverage {cov} for "
+          f"{2 * len(rows)} calls")
+
+    ref = os.path.join(folder, "chr1.fa")
+    genome = genome_of_reads(read_kwargs(READS_SEED, N_READS, READ_BASES))
+    with open(ref, "w") as f:
+        f.write(">chr1\n" + "\n".join(genome[i:i + 80] for i in
+                                       range(0, len(genome), 80)) + "\n")
+    printed, seconds = cli(["combine_strands", "--frequency_fp",
+                            freqs["bfloat16"], "-r", ref])
+    check("not in selected motif poses" not in printed,
+          "combine_strands: rows outside the genome's CG sites: "
+          + printed[:300])
+    out = os.path.join(folder, "freq_bfloat16.fb_combined.tsv")
+    with open(out) as f:
+        merged = [line.split("\t") for line in f]
+    check(all(genome[int(r[1]):int(r[1]) + 2] == "CG" for r in merged)
+          and sum(int(r[8]) for r in merged) == len(rows),
+          "combine_strands: a row off a CG site, or calls lost")
+    res["combine_strands"] = {"sites": len(merged), "seconds": seconds,
+                              "genome_bases": len(genome)}
+    printed, _ = cli(["runner", "-i", os.path.join(folder, "fast5"), "-r",
+                      ref, "-m", ckpt, "-o", os.path.join(folder, "r.tsv"),
+                      "--dry_run", "yes"])
+    plan = [line for line in printed.splitlines() if line.startswith("cmd:")]
+    print("runner --dry_run plan:\n" + "\n".join(plan), flush=True)
+    check(len(plan) == 4 and plan[-1].startswith("cmd: <in-process> "
+                                                  "call_mods"),
+          f"runner: plan {plan}")
+    res["runner_plan_stages"] = len(plan)
+    out = os.path.join(folder, "runner_calls.tsv")
+    bilstm_encoder_fused.launches = 0
+    printed, seconds = cli(["runner", "-i", tsv, "-r", ref, "-m", ckpt, "-o",
+                            out, "--is_resquiggled", "yes"])
+    launches = bilstm_encoder_fused.launches
+    with open(out) as f:
+        got = [line.rstrip("\n").split("\t") for line in f]
+    with open(os.path.join(work, "calls_bfloat16.tsv")) as f:
+        want = [line.rstrip("\n").split("\t") for line in f]
+    dprob = float(np.abs(np.float32([r[6:8] for r in got])
+                         - np.float32([r[6:8] for r in want])).max())
+    check(launches == -(-N_ROWS // B), f"runner: K1 launched {launches} "
+          f"times for {-(-N_ROWS // B)} device batches")
+    check(len(got) == N_ROWS and [r[:6] for r in got] == [r[:6] for r in want]
+          and dprob < DPROB_TOL["bfloat16"],
+          f"runner: {len(got)} calls, max |dprob| {dprob} against the e2e run")
+    res["runner"] = {"launches": launches, "calls": len(got),
+                     "seconds": seconds, "max_dprob_vs_e2e": dprob,
+                     "identical_lines": sum(a == b for a, b in zip(got, want))}
+    res["card"] = card_line()
+    print(f"tools: {json.dumps(res)}", flush=True)
+    return res
+
+
+def run_tools_after_train(work: str, files: dict) -> dict:
+    """``evaluate`` on the float32 score run's calls of the labelled
+    validation rows, split by their true label (the all-sites AUC above
+    0.6), and ``visualize_log`` on the float32 train run's logs (a PNG, or
+    the RuntimeError where matplotlib is missing)."""
+    import random
+
+    from deepsignal_tpu_torch.tools.evaluate import evaluate_mods_call
+    from deepsignal_tpu_torch.tools.vis import draw_log
+
+    folder = os.path.join(work, "tools")
+    with open(files["valid_tsv"]) as f:
+        labels = [int(line.rsplit("\t", 1)[1]) for line in f]
+    with open(os.path.join(work, "valid_calls_float32.tsv")) as f:
+        calls = f.readlines()
+    check(len(calls) == len(labels), "evaluate: calls and labels differ")
+    split = {1: os.path.join(folder, "meth.tsv"),
+             0: os.path.join(folder, "unmeth.tsv")}
+    for label, path in split.items():
+        with open(path, "w") as f:
+            f.writelines(c for c, y in zip(calls, labels) if y == label)
+    out = os.path.join(folder, "evaluate.txt")
+    t0 = time.perf_counter()
+    evaluate_mods_call(split[1], split[0], out, rng=random.Random(EVAL_SEED))
+    seconds = time.perf_counter() - t0
+    with open(out) as f:
+        last = f.read().splitlines()[-1].split("\t")
+    auc, accuracy = float(last[14]), float(last[6])
+    print(f"evaluate all_sites: accuracy {accuracy:.3f}, AUC {auc:.3f}",
+          flush=True)
+    check(last[0] == "all_sites" and auc > 0.6,
+          f"evaluate: all_sites AUC {auc}")
+    res = {"evaluate": {"rows": len(calls), "auc": auc,
+                        "accuracy": accuracy, "seconds": seconds,
+                        "rows_per_s": len(calls) / seconds}}
+    log_dir = os.path.join(work, "logs_float32")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        try:
+            draw_log(log_dir)
+        except RuntimeError as e:
+            check("matplotlib" in str(e), f"visualize_log: {e}")
+            res["visualize_log"] = {"matplotlib": False, "raised": str(e)}
+        else:
+            fail("visualize_log: drew without matplotlib")
+    else:
+        png = draw_log(log_dir)
+        with open(png, "rb") as f:
+            check(f.read(8) == b"\x89PNG\r\n\x1a\n", "visualize_log: no PNG")
+        res["visualize_log"] = {"matplotlib": True, "png": png}
+    res["card"] = card_line()
+    print(f"tools after train: {json.dumps(res)}", flush=True)
+    return res
+
+
+# --------------------------------------------------------------------------
 # train
 
 
@@ -1953,6 +2292,12 @@ def main() -> None:
         e2e_reads.append(res)
     fast5 = check_fast5_entry(ckpt, work)
     del reads
+    tf1 = run_tf1(tsv, work)
+    for dtype_name in dtypes:
+        launches["K1", dtype_name]["tf1_call_mods"] = \
+            tf1[dtype_name]["launches"]
+    tools = run_tools(work, ckpt, tsv)
+    launches["K1", "bfloat16"]["runner"] = tools["runner"]["launches"]
 
     t0 = time.time()
     files = {k: os.path.join(work, name) for k, name in (
@@ -1975,6 +2320,7 @@ def main() -> None:
         res["step"] = time_train_step(trainer, files)
         del trainer
         trains.append(res)
+    tools.update(run_tools_after_train(work, files))
     denoised = run_denoise(work, rng)
     launches["K1", "float32"]["denoise"] = denoised["k1_launches"]
     launches["K2", "float32"]["denoise"] = denoised["k2_launches"]
@@ -1996,6 +2342,7 @@ def main() -> None:
                       "reads": {"featurize": featurized,
                                 "extract": extracted, "e2e": e2e_reads,
                                 "fast5": fast5},
+                      "tf1": tf1, "tools": tools,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

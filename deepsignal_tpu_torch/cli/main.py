@@ -1,14 +1,28 @@
-"""deepsignal-tpu-torch command line: the ``extract``, ``call_mods``,
-``train`` and ``denoise`` subcommands.
+"""deepsignal-tpu-torch command line: the JAX package's 18 subcommands.
 
-Flag names and defaults follow ``deepsignal_tpu``'s CLI (and the
-reference's); ``--device`` (default ``cuda``) is new.  Torch is imported
-only inside the handlers.
+The four model subcommands (``extract``, ``call_mods``, ``train``,
+``denoise``) and the reference's scripts/ tools as subcommands:
+``call_freq``, ``combine_freq``, ``combine_strands``, ``evaluate``,
+``runner``, ``binarize``, ``filter_label``, ``filter_positions``,
+``select_neg``, ``kmer_dist``, ``randsel``, ``shuffle``, ``concat`` and
+``visualize_log``.
+
+Flag names, short forms and defaults follow the JAX package's CLI (and the
+reference's).  Two differences: ``--device`` (default ``cuda``) is new on
+the subcommands that run the model (``call_mods``, ``train``, ``denoise``,
+``runner``), and ``call_mods`` has no ``--lstm_impl``, whose choices name
+the JAX package's TPU implementations (XLA scan or Pallas kernel); the
+port always runs its CUDA kernels on the card.  Only the handlers of
+``call_mods``, ``train``, ``denoise`` and ``runner`` import torch; the
+other subcommands are host code.  The random tools draw unseeded, as the
+JAX package's CLI does.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import random
 import sys
 
 from ..core.constants import str2bool
@@ -115,6 +129,128 @@ def main_denoise(args) -> None:
     denoise(args.train_file, mcfg, dcfg, device=args.device)
 
 
+def main_call_freq(args) -> None:
+    from ..tools.frequency import call_mods_frequency_to_file
+    call_mods_frequency_to_file(args.input_path, args.result_file,
+                                prob_cf=args.prob_cf, file_uid=args.file_uid,
+                                is_sort=args.sort, is_bed=args.bed)
+
+
+def main_combine_freq(args) -> None:
+    from ..tools.frequency import combine_freq_files
+    combine_freq_files(args.modsfile, args.wfile)
+
+
+def main_combine_strands(args) -> None:
+    from ..tools.combine import combine_two_strands_frequency
+    out = combine_two_strands_frequency(args.frequency_fp, args.ref_fp,
+                                        contig=args.contig)
+    print("combined file: {}".format(out))
+
+
+def main_evaluate(args) -> None:
+    from ..tools.evaluate import evaluate_mods_call
+    evaluate_mods_call(args.methylated, args.unmethylated, args.result_file,
+                       rng=random.Random())
+
+
+def main_runner(args) -> None:
+    from ..tools.runner import RunnerConfig, run_pipeline
+    cfg = RunnerConfig(
+        input_path=args.input_path, ref_fp=args.ref_fp,
+        model_path=args.model_path, result_file=args.result_file,
+        is_multi_reads=args.is_multi_reads, flowcell=args.flowcell,
+        kit=args.kit, num_callers=args.num_callers, gpu=args.gpu,
+        basecall_group=args.basecall_group,
+        basecall_subgroup=args.basecall_subgroup,
+        corrected_group=args.corrected_group, kmer_len=args.kmer_len,
+        cent_signals_len=args.cent_signals_len, motifs=args.motifs,
+        mod_loc=args.mod_loc, threads=args.nproc,
+        is_basecalled=args.is_basecalled, is_resquiggled=args.is_resquiggled)
+    run_pipeline(cfg, dry_run=args.dry_run, device=args.device)
+
+
+def main_binarize(args) -> None:
+    from ..io.feature_codec import convert_txt_to_binary
+    out = args.write_path
+    if out is None:
+        out = os.path.splitext(args.feature_file)[0] + ".bin"
+    n = convert_txt_to_binary(args.feature_file, out, args.kmer_len,
+                              args.cent_signals_len)
+    print("wrote {} records to {}".format(n, out))
+
+
+def main_filter_label(args) -> None:
+    from ..tools.dataset import filter_samples_by_label
+    n = filter_samples_by_label(args.input_path, args.write_path, args.label,
+                                args.unique_fid)
+    print("kept {} rows".format(n))
+
+
+def main_filter_positions(args) -> None:
+    from ..tools.dataset import filter_samples_by_positions
+    n = filter_samples_by_positions(args.sf_path, args.pos_fp,
+                                    args.write_path, label=args.label,
+                                    chrom_col=args.chrom_col,
+                                    pos_col=args.pos_col,
+                                    unique_fid=args.unique_fid)
+    print("kept {} rows".format(n))
+
+
+def main_select_neg(args) -> None:
+    from ..tools.dataset import select_negsamples_asposkmer
+    n = select_negsamples_asposkmer(args.pos_file, args.neg_file,
+                                    args.write_path, rng=random.Random())
+    print("selected {} negative rows".format(n))
+
+
+def main_kmer_dist(args) -> None:
+    from ..tools.dataset import write_kmer_distribution
+    out = write_kmer_distribution(args.feafile)
+    print("kmer distribution written to {}".format(out))
+
+
+def main_randsel(args) -> None:
+    from ..tools.dataset import random_select_file_rows
+    n = random_select_file_rows(args.ori_filepath, args.write_filepath,
+                                args.write_other_filepath, args.num_lines,
+                                str2bool(args.header), rng=random.Random())
+    print("selected {} rows".format(n))
+
+
+def main_shuffle(args) -> None:
+    import numpy as np
+
+    from ..tools.dataset import shuffle_big_file
+    out = shuffle_big_file(args.fp, num_lines_shuffle=args.num_lines_shuffle,
+                           temp_dir=args.temp_dir,
+                           rng=np.random.default_rng())
+    print("shuffled file: {}".format(out))
+
+
+def main_concat(args) -> None:
+    import numpy as np
+
+    from ..tools.dataset import concat_two_files
+    concat_two_files(args.fp1, args.fp2, args.concated_fp,
+                     shuffle_lines_num=args.shuffle_lines_num,
+                     isheader=str2bool(args.header),
+                     rng=np.random.default_rng())
+    print("done concating files to: {}".format(args.concated_fp))
+
+
+def main_visualize_log(args) -> None:
+    from ..tools.vis import draw_log
+    out = draw_log(args.log_dir, args.out_fp)
+    print("figure saved to {}".format(out))
+
+
+def _add_device_arg(p) -> None:
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device, default cuda; 'cpu' runs the plain "
+                        "versions of the kernels")
+
+
 def _add_fast5_args(p, with_methy_label: bool = True) -> None:
     """The featurizer's flags (the JAX CLI's, cli/main.py:267-310)."""
     grp = p.add_argument_group("FAST5_EXTRACTION")
@@ -210,9 +346,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"],
                    help="bfloat16 = fast path (default), float32 = "
                         "reference-parity mode")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device, default cuda; 'cpu' runs the plain "
-                        "versions of the kernels")
+    _add_device_arg(p)
     _add_fast5_args(p, with_methy_label=False)
     p.set_defaults(func=main_call_mods)
 
@@ -246,9 +380,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue from the rolling train-state checkpoint in "
                         "model_dir (params + optimizer + generator + shuffle "
                         "stream); reproduces an unbroken run exactly")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device, default cuda; 'cpu' runs the plain "
-                        "versions of the kernels")
+    _add_device_arg(p)
     p.set_defaults(func=main_train)
 
     p = subparsers.add_parser(
@@ -272,10 +404,163 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--score_cf", type=float, default=0.5,
                    help="score cutoff")
     p.add_argument("--pos_weight", type=float, default=1.0)
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device, default cuda; 'cpu' runs the plain "
-                        "versions of the kernels")
+    _add_device_arg(p)
     p.set_defaults(func=main_denoise)
+
+    # ---- tools ------------------------------------------------------------
+    p = subparsers.add_parser(
+        "call_freq",
+        description="calculate per-site modification frequency")
+    p.add_argument("--input_path", "-i", action="append", type=str,
+                   required=True,
+                   help="call_mods result file or a directory of them "
+                        "(repeatable)")
+    p.add_argument("--result_file", "-o", type=str, required=True)
+    p.add_argument("--bed", action="store_true", default=False,
+                   help="save in bedMethyl format")
+    p.add_argument("--sort", action="store_true", default=False,
+                   help="sort items in the result")
+    p.add_argument("--prob_cf", type=float, default=0.0,
+                   help="ambiguous-call filter: use call only if "
+                        "abs(prob1-prob0)>=prob_cf. default 0.0")
+    p.add_argument("--file_uid", type=str, default=None,
+                   help="substring identifying input files in a directory")
+    p.set_defaults(func=main_call_freq)
+
+    p = subparsers.add_parser("combine_freq",
+                              description="sum multiple frequency files "
+                                          "per site")
+    p.add_argument("--modsfile", action="append", type=str, required=True)
+    p.add_argument("--wfile", type=str, required=True)
+    p.set_defaults(func=main_combine_freq)
+
+    p = subparsers.add_parser(
+        "combine_strands",
+        description="combine CG frequencies of +/- strands onto forward "
+                    "positions")
+    p.add_argument("--frequency_fp", type=str, required=True,
+                   help="frequency file, freq TSV or .bed")
+    p.add_argument("-r", "--ref_fp", type=str, required=True)
+    p.add_argument("--contig", type=str, default="")
+    p.set_defaults(func=main_combine_strands)
+
+    p = subparsers.add_parser(
+        "evaluate", description="evaluate call accuracy vs truth call files")
+    p.add_argument("--unmethylated", type=str, required=True)
+    p.add_argument("--methylated", type=str, required=True)
+    p.add_argument("--result_file", type=str, required=True)
+    p.set_defaults(func=main_evaluate)
+
+    p = subparsers.add_parser(
+        "runner",
+        description="one-shot pipeline: multi_to_single_fast5 -> guppy -> "
+                    "tombo resquiggle -> call_mods (the external tools must "
+                    "be installed; call_mods runs in this process)")
+    p.add_argument("--input_path", "-i", type=str, required=True)
+    p.add_argument("--ref_fp", "-r", type=str, required=True)
+    p.add_argument("--model_path", "-m", type=str, required=True)
+    p.add_argument("--result_file", "-o", type=str, required=True)
+    p.add_argument("--is_multi_reads", type=str2bool, default=False,
+                   help="input fast5s are multi-read files")
+    p.add_argument("--is_basecalled", type=str2bool, default=False)
+    p.add_argument("--is_resquiggled", type=str2bool, default=False)
+    p.add_argument("--flowcell", type=str, default="FLO-MIN106")
+    p.add_argument("--kit", type=str, default="SQK-LSK108")
+    p.add_argument("--num_callers", type=int, default=4)
+    p.add_argument("--gpu", type=str, default="cuda:0",
+                   help="guppy's device argument (guppy only)")
+    p.add_argument("--basecall_group", type=str, default="Basecall_1D_000")
+    p.add_argument("--basecall_subgroup", type=str,
+                   default="BaseCalled_template")
+    p.add_argument("--corrected_group", type=str,
+                   default="RawGenomeCorrected_000")
+    p.add_argument("--kmer_len", type=int, default=17)
+    p.add_argument("--cent_signals_len", type=int, default=360)
+    p.add_argument("--motifs", type=str, default="CG")
+    p.add_argument("--mod_loc", type=int, default=0)
+    p.add_argument("--nproc", "-p", type=int, default=4)
+    p.add_argument("--dry_run", type=str2bool, default=False,
+                   help="print the stage commands without executing")
+    _add_device_arg(p)
+    p.set_defaults(func=main_runner)
+
+    p = subparsers.add_parser(
+        "binarize", description="feature TSV -> fixed-length binary records")
+    p.add_argument("--feature_file", "-i", type=str, required=True)
+    p.add_argument("--write_path", "-o", type=str, default=None)
+    p.add_argument("--kmer_len", "-x", type=int, default=17)
+    p.add_argument("--cent_signals_len", "-y", type=int, default=360)
+    p.set_defaults(func=main_binarize)
+
+    p = subparsers.add_parser("filter_label",
+                              description="keep rows with a given "
+                                          "methy_label")
+    p.add_argument("--input_path", "-i", type=str, required=True)
+    p.add_argument("--write_path", "-o", type=str, required=True)
+    p.add_argument("--label", type=int, default=1, choices=[0, 1])
+    p.add_argument("--unique_fid", type=str, default=".tsv")
+    p.set_defaults(func=main_filter_label)
+
+    p = subparsers.add_parser(
+        "filter_positions",
+        description="keep rows whose (chrom,pos) is in a positions file; "
+                    "rewrites the label column")
+    p.add_argument("--sf_path", "-i", type=str, required=True)
+    p.add_argument("--pos_fp", "-p", type=str, required=True)
+    p.add_argument("--write_path", "-o", type=str, required=True)
+    p.add_argument("--label", type=str, default="1", choices=["0", "1"])
+    p.add_argument("--chrom_col", type=int, default=1)
+    p.add_argument("--pos_col", type=int, default=2)
+    p.add_argument("--unique_fid", type=str, default=".tsv")
+    p.set_defaults(func=main_filter_positions)
+
+    p = subparsers.add_parser(
+        "select_neg",
+        description="select negative samples matching the positive file's "
+                    "k-mer distribution")
+    p.add_argument("--pos_file", type=str, required=True)
+    p.add_argument("--neg_file", type=str, required=True)
+    p.add_argument("--write_path", "-o", type=str, required=True)
+    p.set_defaults(func=main_select_neg)
+
+    p = subparsers.add_parser("kmer_dist",
+                              description="write the k-mer distribution of "
+                                          "a feature file")
+    p.add_argument("--feafile", "-i", type=str, required=True)
+    p.set_defaults(func=main_kmer_dist)
+
+    p = subparsers.add_parser("randsel",
+                              description="random row subsampling of a file")
+    p.add_argument("--ori_filepath", "-i", type=str, required=True)
+    p.add_argument("--write_filepath", "-o", type=str, required=True)
+    p.add_argument("--write_other_filepath", type=str, default=None)
+    p.add_argument("--num_lines", type=int, default=100000000)
+    p.add_argument("--header", type=str, default="no")
+    p.set_defaults(func=main_randsel)
+
+    p = subparsers.add_parser("shuffle",
+                              description="external-memory shuffle of a "
+                                          "big file")
+    p.add_argument("--fp", "-i", type=str, required=True)
+    p.add_argument("--num_lines_shuffle", type=int, default=3000000)
+    p.add_argument("--temp_dir", type=str, default="/tmp")
+    p.set_defaults(func=main_shuffle)
+
+    p = subparsers.add_parser("concat",
+                              description="streaming shuffle-concat of two "
+                                          "files")
+    p.add_argument("--fp1", type=str, required=True)
+    p.add_argument("--fp2", type=str, required=True)
+    p.add_argument("--concated_fp", "-o", type=str, required=True)
+    p.add_argument("--shuffle_lines_num", type=int, default=2000000)
+    p.add_argument("--header", type=str, default="no")
+    p.set_defaults(func=main_concat)
+
+    p = subparsers.add_parser("visualize_log",
+                              description="plot train/valid metric curves")
+    p.add_argument("--log_dir", "-i", type=str, required=True)
+    p.add_argument("--out_fp", "-o", type=str, default=None)
+    p.set_defaults(func=main_visualize_log)
     return parser
 
 

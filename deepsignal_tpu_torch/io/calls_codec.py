@@ -5,20 +5,30 @@ formatter (``io/native.py``, ``csrc/callfmt.cpp``); the pure-Python
 versions stay as its plain versions (``*_plain``).  Where the JAX package
 checks its native formatter once at import and falls back to Python in
 silence, the port checks it once, at first use, and raises when its bytes
-differ from the plain ones.
+differ from the plain ones.  The record half (``ModRecord``, ``SiteStats``,
+``iter_call_records``, ``format_frequency_row``) reads call rows back for
+the frequency tools.
 
 call_mods output TSV, 10 columns (call_modifications.py:184-190):
   chrom, pos, strand, pos_in_strand, readname, read_strand, prob_0, prob_1,
   called_label, k_mer     with prob_i = sigmoid_i / (sigmoid_0 + sigmoid_1).
+
+Frequency TSV, 11 columns (scripts/call_modification_frequency.py:70-76):
+  chrom, pos, strand, pos_in_strand, prob_0_sum, prob_1_sum, count_modified,
+  count_unmodified, coverage, modification_frequency, k_mer
+bedMethyl alternative at call_modification_frequency.py:64-68.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gzip
+from typing import Iterator
 
 import numpy as np
 
-from ..core.constants import CODE2BASE_DNA, CODE2BASE_RNA
+from ..core.constants import CODE2BASE_DNA, CODE2BASE_RNA, KEY_SEP
 from . import native
 
 
@@ -155,3 +165,78 @@ def native_checked() -> None:
     finally:
         for fn, n in zip(counted, calls):
             fn.calls = n
+
+
+@dataclasses.dataclass
+class ModRecord:
+    """One per-read call row (scripts/txt_formater.py:8-27)."""
+
+    chromosome: str
+    pos: int
+    strand: str
+    pos_in_strand: int
+    readname: str
+    read_strand: str
+    prob_0: float
+    prob_1: float
+    called_label: int
+    kmer: str
+
+    @property
+    def site_key(self) -> str:
+        return KEY_SEP.join([self.chromosome, str(self.pos)])
+
+    def is_record_callable(self, prob_threshold: float) -> bool:
+        """Ambiguity filter (txt_formater.py:23-27): drop the call when
+        |prob_0 - prob_1| < threshold."""
+        return abs(self.prob_0 - self.prob_1) >= prob_threshold
+
+    @staticmethod
+    def from_fields(words: list) -> "ModRecord":
+        return ModRecord(words[0], int(words[1]), words[2], int(words[3]),
+                         words[4], words[5], float(words[6]), float(words[7]),
+                         int(words[8]), words[9])
+
+
+@dataclasses.dataclass
+class SiteStats:
+    """Accumulator for one genomic site (scripts/txt_formater.py:34-46)."""
+
+    strand: str
+    pos_in_strand: int
+    kmer: str
+    prob_0: float = 0.0
+    prob_1: float = 0.0
+    met: int = 0
+    unmet: int = 0
+    coverage: int = 0
+
+
+def split_key(key: str):
+    words = key.split(KEY_SEP)
+    return words[0], int(words[1])
+
+
+def iter_call_records(path: str) -> Iterator[ModRecord]:
+    """ModRecords of a call TSV, gzip-compressed when its name ends in
+    ``.gz`` (call_modification_frequency.py:22-27)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as rf:
+        for line in rf:
+            yield ModRecord.from_fields(line.strip().split("\t"))
+
+
+def format_frequency_row(chrom: str, pos: int, stats: SiteStats,
+                         is_bed: bool = False) -> str:
+    """One frequency row (call_modification_frequency.py:64-76): the sums
+    are Python floats added in file order, printed with %.3f and the rate
+    with %.4f; bedMethyl rounds the percentage with ``round(x, 0)``."""
+    rmet = float(stats.met) / stats.coverage
+    if is_bed:
+        return "\t".join([chrom, str(pos), str(pos + 1), ".",
+                          str(stats.coverage), stats.strand, str(pos),
+                          str(pos + 1), "0,0,0", str(stats.coverage),
+                          str(int(round(rmet * 100, 0)))])
+    return "%s\t%d\t%s\t%d\t%.3f\t%.3f\t%d\t%d\t%d\t%.4f\t%s" % (
+        chrom, pos, stats.strand, stats.pos_in_strand, stats.prob_0,
+        stats.prob_1, stats.met, stats.unmet, stats.coverage, rmet, stats.kmer)

@@ -6,7 +6,9 @@ row), shipped in a compact wire format through pinned host memory with
 non-blocking copies, and scored; the sigmoid and argmax run on the device,
 the float32 renormalization on the host (call_modifications.py:185-187).
 Up to ``pipeline_depth`` feature batches are in flight while the host
-formats and writes the previous one.
+formats and writes the previous one.  On CUDA the stages carry NVTX ranges
+(``read_wait``, ``h2d``, ``forward``, ``format``), and ``run_call_mods``
+writes a ``torch.profiler`` trace when given ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from ..core.config import FeatureConfig, ModelConfig
 from ..core.device import resolve_device
-from ..core.logging import ThroughputMeter
+from ..core.logging import ThroughputMeter, nvtx_range, trace
 from ..io.calls_codec import count_read_runs, format_call_block
 from ..io.feature_codec import FeatureBatch
 from ..models.deepsignal import model_from_state_dict, predictions
@@ -98,14 +100,16 @@ class ModCaller:
             print("warning: per-base signal count > 65535 clipped to the "
                   "uint16 wire range (the reference's <u2 binary record "
                   "limit)", file=sys.stderr)
-        kmer, means, stds, counts, signals = (
-            self._to_device(a) for a in
-            compact_wire_arrays(kmer, means, stds, sanums, signals))
-        sanums = counts.to(torch.int32) & 0xFFFF
-        logits = self.model(kmer, means, stds, sanums, signals)
-        # sigmoid, not softmax (model.py:99-100); argmax at pos_weight 1
-        act = self._to_host(torch.sigmoid(logits))
-        pred = self._to_host(predictions(logits))
+        with nvtx_range("h2d", self._cuda):
+            kmer, means, stds, counts, signals = (
+                self._to_device(a) for a in
+                compact_wire_arrays(kmer, means, stds, sanums, signals))
+        with nvtx_range("forward", self._cuda):
+            sanums = counts.to(torch.int32) & 0xFFFF
+            logits = self.model(kmer, means, stds, sanums, signals)
+            # sigmoid, not softmax (model.py:99-100); argmax at pos_weight 1
+            act = self._to_host(torch.sigmoid(logits))
+            pred = self._to_host(predictions(logits))
         done = None
         if self._cuda:
             done = torch.cuda.Event()
@@ -150,8 +154,9 @@ class ModCaller:
         """Wait on a dispatch handle; returns (rows as one bytes block,
         pred, (p0, p1))."""
         fb, all_pred, all_p0, all_p1 = self._resolve(handle)
-        block = format_call_block(fb.sampleinfo, all_p0, all_p1, all_pred,
-                                  fb.kmers, is_dna)
+        with nvtx_range("format", self._cuda):
+            block = format_call_block(fb.sampleinfo, all_p0, all_p1,
+                                      all_pred, fb.kmers, is_dna)
         return block, all_pred, (all_p0, all_p1)
 
 
@@ -202,7 +207,13 @@ def call_mods_on_batches(caller: ModCaller, batches: Iterable[FeatureBatch],
                                            else 0))
                 prev_last_read = last
 
-        for fb in coalesce_feature_batches(batches, caller.batch_size):
+        stream = coalesce_feature_batches(batches, caller.batch_size)
+        cuda = caller.device.type == "cuda"
+        while True:
+            with nvtx_range("read_wait", cuda):
+                fb = next(stream, None)
+            if fb is None:
+                break
             in_flight.append(caller.dispatch_feature_batch(fb))
             if len(in_flight) > pipeline_depth:
                 drain_one()
@@ -216,7 +227,7 @@ def run_call_mods(input_path: str, model_path: str, result_file: str,
                   f5_batch_num: int = 50, model_cfg_override=None,
                   compute_dtype=None, device=None, nproc: int = 2,
                   reference_path=None, position_file=None,
-                  is_recursive: bool = True) -> int:
+                  is_recursive: bool = True, profile_dir=None) -> int:
     """call_mods (call_modifications.py:417-495): score every site of
     ``input_path`` with the checkpoint at ``model_path`` and write the
     10-column call TSV.  Returns the call count.
@@ -231,7 +242,8 @@ def run_call_mods(input_path: str, model_path: str, result_file: str,
     ``device=None`` runs on ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the CPU.  ``compute_dtype=None`` selects
     ``DEFAULT_COMPUTE_DTYPE`` (bfloat16); pass "float32" for the
-    reference-parity path."""
+    reference-parity path.  With ``profile_dir`` the calling loop runs
+    under ``core/logging.py::trace``, which writes a Chrome trace there."""
     start = time.time()
     device = resolve_device(device)
     feature_cfg = feature_cfg or FeatureConfig()
@@ -256,8 +268,10 @@ def run_call_mods(input_path: str, model_path: str, result_file: str,
         caller = ModCaller(cfg, variables, batch_size=batch_size,
                            device=device)
         meter = ThroughputMeter("call_mods")
-        count = call_mods_on_batches(caller, batches, result_file,
-                                     meter=meter, is_dna=feature_cfg.is_dna)
+        with trace(profile_dir, device):
+            count = call_mods_on_batches(caller, batches, result_file,
+                                         meter=meter,
+                                         is_dna=feature_cfg.is_dna)
     finally:
         batches.close()
     print(meter.line())

@@ -9,6 +9,7 @@ conftest (which imports JAX):
 Without a GPU every test skips.
 """
 
+import contextlib
 from unittest import mock
 
 import numpy as np
@@ -431,3 +432,93 @@ def test_native_featurizer_matches_plain_on_the_card_host(cuda_device):
         want = f.read().splitlines()
     assert errors == 0
     assert [r for f in feats for r in f.to_tsv_rows()] == want
+
+
+# --------------------------------------------------------------------------
+# TF1 import and the host tools on the card's calls
+
+
+def _tf1_slotted_npz(tt, cfg, path):
+    """The tiny model's weights in the TF1 name space, with the optimizer
+    slots and bookkeeping a ``tf.train.Saver`` of an Adam run stores."""
+    from deepsignal_tpu_torch.models.tf1_import import export_tf1_style_arrays
+    from deepsignal_tpu_torch.train.checkpoints import state_dict_to_variables
+    arrs = export_tf1_style_arrays(
+        state_dict_to_variables(cfg, tt.tiny_state_dict()), cfg)
+    for name, a in list(arrs.items()):
+        arrs[name + "/Adam"] = a + 1
+        arrs[name + "/Adam_1"] = a * a
+    arrs.update(beta1_power=np.float32(0.9), beta2_power=np.float32(0.999),
+                global_step=np.int64(7))
+    np.savez(path, **arrs)
+    return path
+
+
+# the fused-encoder kernel against the plain encoder, float32, carried
+# through the tiny joint head
+TF1_PROB_TOL = 1e-5
+
+
+@pytest.mark.cuda
+def test_tf1_import_calls_through_the_encoder_kernel(cuda_device, tmp_path):
+    """A slot-bearing TF1 .npz of the tiny model -> ``import_tf1_npz`` ->
+    ``save_checkpoint`` -> ``run_call_mods`` on the golden tiny features in
+    float32, through K1: the calls equal those of the same checkpoint with
+    the plain encoder on the card within TF1_PROB_TOL."""
+    from deepsignal_tpu_torch.models.tf1_import import import_tf1_npz
+    from deepsignal_tpu_torch.runtime.caller import run_call_mods
+    from deepsignal_tpu_torch.train.checkpoints import save_checkpoint
+    tt = _tiny()
+    cfg = tt.tiny_cfg()
+    npz = _tf1_slotted_npz(tt, cfg, str(tmp_path / "tf1.npz"))
+    ckpt = save_checkpoint(str(tmp_path / "m.ckpt"), cfg,
+                           import_tf1_npz(npz, cfg))
+    rows = {}
+    for encoder in ("kernel", "plain"):
+        before = bilstm_encoder_fused.launches
+        patch = mock.patch.object(layers, "bilstm_encoder_fused",
+                                  bilstm_encoder_fused_plain) \
+            if encoder == "plain" else contextlib.nullcontext()
+        with patch:
+            n = run_call_mods(tt.FEATURES, ckpt,
+                              str(tmp_path / f"{encoder}.tsv"),
+                              batch_size=16, f5_batch_num=3,
+                              compute_dtype="float32")
+        torch.cuda.synchronize()
+        assert n == tt.N_ROWS
+        assert bilstm_encoder_fused.launches - before == (
+            -(-tt.N_ROWS // 16) if encoder == "kernel" else 0)
+        rows[encoder] = [r.split("\t") for r in (
+            tmp_path / f"{encoder}.tsv").read_text().splitlines()]
+    for g, w in zip(rows["kernel"], rows["plain"]):
+        assert g[:6] + g[9:] == w[:6] + w[9:]
+        p, q = np.float32(g[6:8]), np.float32(w[6:8])
+        np.testing.assert_allclose(p, q, rtol=0, atol=TF1_PROB_TOL)
+        if abs(q[1] - q[0]) > 2 * TF1_PROB_TOL:
+            assert g[8] == w[8]
+
+
+@pytest.mark.cuda
+def test_call_freq_on_the_card_calls(cuda_device, tmp_path):
+    """``call_freq`` on the calls the card writes (bfloat16, the default):
+    every call counted once, at its site."""
+    from deepsignal_tpu_torch.runtime.caller import run_call_mods
+    from deepsignal_tpu_torch.tools.frequency import \
+        call_mods_frequency_to_file
+    from deepsignal_tpu_torch.train.checkpoints import (
+        save_checkpoint, state_dict_to_variables)
+    tt = _tiny()
+    cfg = tt.tiny_cfg()
+    ckpt = save_checkpoint(str(tmp_path / "m.ckpt"), cfg,
+                           state_dict_to_variables(cfg, tt.tiny_state_dict()))
+    calls = str(tmp_path / "calls.tsv")
+    assert run_call_mods(tt.FEATURES, ckpt, calls, batch_size=16) == \
+        tt.N_ROWS
+    labels = [int(r.split("\t")[8]) for r in open(calls)]
+    stats = call_mods_frequency_to_file([calls], str(tmp_path / "f.tsv"),
+                                        is_sort=True)
+    freq = [r.split("\t") for r in open(tmp_path / "f.tsv")]
+    assert len(freq) == len(stats) == tt.N_ROWS  # one call a site
+    assert sum(int(r[8]) for r in freq) == tt.N_ROWS
+    assert sum(int(r[6]) for r in freq) == sum(labels)
+    assert [int(r[1]) for r in freq] == sorted(int(r[1]) for r in freq)

@@ -27,13 +27,16 @@ def test_port_modules_import_without_jax():
     for name in ("ops.cuda.lstm", "io.native", "runtime.pipeline",
                  "tools.dataset", "train.denoise", "io.fast5", "io.fasta",
                  "featurize.extractor", "featurize.signal",
-                 "featurize.central"):
+                 "featurize.central", "tools.frequency", "tools.combine",
+                 "tools.evaluate", "tools.runner", "tools.vis",
+                 "models.tf1_import", "core.logging"):
         assert f"deepsignal_tpu_torch.{name}" in modules
+    # matplotlib is imported at the first plot only
     code = ("import sys\n"
             f"for m in {modules!r}:\n"
             "    __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'deepsignal_tpu'))\n"
+            "('jax', 'flax', 'deepsignal_tpu', 'matplotlib'))\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
