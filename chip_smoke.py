@@ -65,7 +65,21 @@ per-layer kernel.  Then it drives the main paths at full width:
   on a synthetic labelled set whose positives are 30% mislabelled, one
   iteration of one round of one epoch: every scan launch of a train step
   resident, one encoder launch per scoring batch, every line scored, and
-  fewer mislabelled positives kept than true ones.
+  fewer mislabelled positives kept than true ones;
+- the multi-GPU paths on the one card (``parallel``): ``call_mods``
+  through the CLI under ``python -m torch.distributed.run`` with 2 ranks
+  on cuda:0 in bfloat16 and float32 (each rank's stride shard of the read
+  batches into its part file, K1 once per device batch of each rank; the
+  merged calls equal the single run's), the reads path with
+  ``host_shard=(k, 2)`` for both k in turn (the union equals the
+  unsharded calls), ``train`` through the CLI at world size 1 under NCCL
+  (per-step loss and counts within the spread of two non-distributed
+  runs, its checkpoint scored by ``run_call_mods``, its ms per step beside
+  the non-distributed one), and 2 ranks over gloo on cuda:0 (NCCL refuses
+  two ranks on one card): 3 data-parallel steps and one fc1
+  tensor-parallel step against one process, every K2 launch resident at
+  the per-rank batch.  A rank runs this file with ``--rank <spec.json>``
+  (``rank_worker``).
 
 The bfloat16 call run is also timed stage by stage, and one forward batch of
 4096 is profiled (its top device ops and the device's idle share).  The
@@ -142,6 +156,18 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # one rounding (2**-8) apart, and the bfloat16 forward and backward
 # downstream round again at other places: a few 2**-8, with a margin.
 STEP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the parallel phase's steps against one process run at this learning
+# rate.  Adam's first step moves every weight by +-lr (a sign step), and
+# the batch-norm gradients are ill-conditioned: in float32 some are 2% off
+# their float64 values, so a reordered sum flips the step of some of them,
+# and the next loss moves in proportion to lr.  At TrainConfig's 1e-3 the
+# 6032-wide head makes step 2's loss 20-40 and two non-distributed runs on
+# an H100 read 2e-3 apart at step 2 and 7e-2 at step 9, which resolves no
+# fault; at 1e-5 two ranks read 5.7e-5 (relative) from one process at step
+# 2, too near STEP_TOL.  World size 1 trains WORLD1_STEPS steps of the
+# train set, a sweep every 2.
+PARITY_LR = 2e-6
+WORLD1_STEPS = 4
 MARGIN = 1e-3           # label check skips sites with |p1 - p0| below this
 # a device batch's calls vs the plain encoder, max |dprob|: on an H100 80GB
 # HBM3 at 700 W the first batches read 2.6e-3 to 3.1e-3 in bfloat16 and
@@ -1802,15 +1828,16 @@ def write_labelled_features(path: str, n: int, cfg, rng,
     return noisy
 
 
-def recording_trainer(model_cfg, train_cfg):
+def recording_trainer(model_cfg, train_cfg, device=None):
     """The port's Trainer, which also records each train step's loss and
-    counts train and eval steps; ``train()`` drives it as its own."""
+    counts and counts train and eval steps; ``train()`` drives it as its
+    own."""
     from deepsignal_tpu_torch.train.trainer import Trainer
 
     class RecordingTrainer(Trainer):
         def __init__(self):
-            super().__init__(model_cfg, train_cfg)
-            self.losses = []
+            super().__init__(model_cfg, train_cfg, device=device)
+            self.losses, self.counts = [], []
             self.train_steps = self.eval_steps = 0
 
         def train_on_batch_async(self, batch, lr):
@@ -1820,6 +1847,7 @@ def recording_trainer(model_cfg, train_cfg):
         def resolve_metrics(self, handle):
             out = super().resolve_metrics(handle)
             self.losses.append(out[0])
+            self.counts.append([int(c) for c in out[1]])
             return out
 
         def eval_on_batch_async(self, batch):
@@ -2053,6 +2081,26 @@ def profile_steps(step, steps: int = 3, top: int = 8) -> tuple:
     return device_ms, [[key, ms] for ms, key in per_op[:top]]
 
 
+def step_ms(trainer, staged, reps: int = 10) -> float:
+    """ms per train step on ``staged``: the host clock around synchronized
+    steps, median of ``reps`` after 2 warm-up steps."""
+    import torch
+
+    def sync():
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+
+    times = []
+    for i in range(reps + 2):
+        sync()
+        t0 = time.perf_counter()
+        trainer.train_on_batch(staged, trainer.tcfg.learning_rate)
+        sync()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def time_train_step(trainer, files) -> dict:
     """ms per train step (host clock around synchronized steps, median of
     10 after 2 warm-up steps) and one step split by CUDA events into the
@@ -2067,15 +2115,7 @@ def time_train_step(trainer, files) -> dict:
     batch = next(open_dataset(files["train_bin"], True).batches(TRAIN_B))
     staged = trainer.stage_batch(batch)
     lr = trainer.tcfg.learning_rate
-    times = []
-    for i in range(12):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_on_batch(staged, lr)
-        torch.cuda.synchronize()
-        if i >= 2:
-            times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = float(np.median(times))
+    ms = step_ms(trainer, staged)
 
     tensors, mask, _ = staged
     model, tcfg = trainer.model, trainer.tcfg
@@ -2112,9 +2152,9 @@ def time_train_step(trainer, files) -> dict:
         lambda: enc(x, True, tcfg.keep_prob, trainer.generator),
         lambda out: out.backward(g))
     device_ms, top = profile_steps(lambda: trainer.train_on_batch(staged, lr))
-    res = {"ms_per_step": step_ms, "sites_per_s": TRAIN_B / step_ms * 1e3,
+    res = {"ms_per_step": ms, "sites_per_s": TRAIN_B / ms * 1e3,
            "device_ms_per_step": device_ms,
-           "device_idle_share": 1 - device_ms / step_ms, "top_ops": top,
+           "device_idle_share": 1 - device_ms / ms, "top_ops": top,
            "forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms,
            "encoder_forward_ms": enc_fwd_ms,
            "encoder_backward_ms": enc_bwd_ms}
@@ -2193,6 +2233,474 @@ def check_step_parity(dtype_name: str, device) -> dict:
     return {"loss": loss_k, "loss_plain": loss_p, "grad_rel_err": rel,
             "worst_tensor_rel_err": worst, "worst_tensor": name}
 
+
+# --------------------------------------------------------------------------
+# the parallel phase: ranks of torchrun (python -m torch.distributed.run),
+# each one process; chip_smoke.py --rank <spec.json> is one rank's body
+
+
+def torchrun(nproc: int, spec: dict, work: str, tag: str,
+             timeout: int = 300) -> list:
+    """Run ``spec`` in ``nproc`` ranks under torchrun (a free local port),
+    bounded by ``timeout``; the ranks' JSON results in rank order.  The
+    ranks' output goes to ``<work>/<tag>.log``."""
+    import signal
+
+    spec_path = os.path.join(work, f"{tag}.json")
+    spec["out"] = spec_path + ".rank"
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    for r in range(nproc):
+        if os.path.exists(f"{spec['out']}{r}"):
+            os.remove(f"{spec['out']}{r}")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__), "--rank",
+           spec_path]
+    log = os.path.join(work, f"{tag}.log")
+    with open(log, "wb") as out:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    if rc != 0:
+        with open(log, errors="replace") as f:
+            fail(f"{tag}: torchrun ended with {rc}:\n{f.read()[-4000:]}")
+    results = []
+    for r in range(nproc):
+        with open(f"{spec['out']}{r}") as f:
+            results.append(json.load(f))
+    return results
+
+
+def recorded_train(spec: dict, mesh, steps: int) -> dict:
+    """``steps`` train steps of the spec's model and global batches (the
+    binary file in file order) through ``Trainer`` on ``mesh`` (None: one
+    process): per step the loss and counts, a float64 checksum of every
+    parameter (fc1 whole), the K2 launches by variant and the wall ms per
+    step (the host clock around synchronized steps)."""
+    import torch
+
+    from deepsignal_tpu_torch.core.config import ModelConfig, TrainConfig
+    from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
+    from deepsignal_tpu_torch.train.data import open_dataset
+    from deepsignal_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(ModelConfig(**spec["model"]),
+                      TrainConfig(batch_size=spec["batch"], keep_prob=0.5,
+                                  seed=spec["seed"]),
+                      device=spec["device"], mesh=mesh)
+    batches = open_dataset(spec["train_bin"], True).batches(spec["batch"])
+    lstm_layer_scan.launches = 0
+    lstm_layer_scan.launches_by_variant = {"resident": 0, "streaming": 0}
+    out, times = [], []
+    for _ in range(steps):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        loss, counts, _preds, _valid = trainer.train_on_batch(batch,
+                                                              spec["lr"])
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        out.append({"loss": loss, "counts": [int(c) for c in counts]})
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else [v]
+
+    checksum = float(sum(np.asarray(a, dtype=np.float64).sum()
+                         for a in leaves(trainer.variables["params"])))
+    return {"steps": out, "checksum": checksum, "ms_per_step": times,
+            "k2_launches": lstm_layer_scan.launches,
+            "k2_resident": lstm_layer_scan.launches_by_variant["resident"],
+            "local_batch": spec["batch"] // (1 if mesh is None else
+                                             mesh.data),
+            "fc1_rows": int(trainer.model.joint_model.fc1.weight.shape[0]),
+            "device": str(trainer.device)}
+
+
+def rank_cli(argvs: list) -> dict:
+    """One rank of the port's CLI on each of ``argvs`` in turn (each
+    call makes and destroys its process group), with the K1 launches and
+    seconds of each.  For ``train`` it also records each step's loss and
+    counts as ``train()`` reads them, and times steps on its first batch
+    with the trainer ``train()`` made, inside the CLI's process group."""
+    from deepsignal_tpu_torch.cli.main import main as cli_main
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
+    from deepsignal_tpu_torch.train import trainer as trainer_mod
+    from deepsignal_tpu_torch.train.data import open_dataset
+
+    steps, made, timing = [], [], {}
+
+    class Recording(trainer_mod.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def resolve_metrics(self, handle):
+            out = super().resolve_metrics(handle)
+            steps.append({"loss": out[0],
+                          "counts": [int(c) for c in out[1]]})
+            return out
+
+    real_train = trainer_mod.train
+
+    def timed_train(*args, **kwargs):
+        summary = real_train(*args, **kwargs)
+        timing["k2_launches"] = lstm_layer_scan.launches
+        timing["k2_resident"] = lstm_layer_scan.launches_by_variant[
+            "resident"]
+        trainer = made[0]
+        n = len(steps)
+        batch = next(open_dataset(args[0], True).batches(
+            trainer.tcfg.batch_size))
+        timing["ms_per_step"] = step_ms(trainer, trainer.stage_batch(batch),
+                                        reps=5)
+        del steps[n:]
+        timing["grad_bytes"] = 4 * sum(p.numel() for p in
+                                       trainer.model.parameters())
+        timing["mesh"] = None if trainer.mesh is None else \
+            trainer.mesh.shape
+        timing["device"] = str(trainer.device)
+        timing["model_path"] = summary["model_path"]
+        return summary
+
+    trainer_mod.Trainer = Recording
+    trainer_mod.train = timed_train
+    calls = []
+    for argv in argvs:
+        bilstm_encoder_fused.launches = 0
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli_main(argv)
+        calls.append({"seconds": time.perf_counter() - t0,
+                      "k1_launches": bilstm_encoder_fused.launches})
+        print(printed.getvalue(), end="", flush=True)
+        check(rc == 0, f"{argv[0]} exited {rc}")
+    return {"calls": calls, "steps": steps, **timing}
+
+
+def rank_gloo(spec: dict) -> dict:
+    """One of two ranks on one card over gloo: 3 data-parallel steps of
+    the global batch on ``make_mesh()``, then one step with fc1's rows
+    split over ``make_mesh(model_parallel=2)``."""
+    from deepsignal_tpu_torch.parallel.dist import distributed
+    from deepsignal_tpu_torch.parallel.mesh import make_mesh
+
+    with distributed(spec["device"], backend="gloo") as (_rank, world):
+        check(world == 2, f"gloo: world size {world}")
+        dp = recorded_train(spec, make_mesh(), spec["dp_steps"])
+        tp = recorded_train(spec, make_mesh(model_parallel=2), 1)
+    return {"gloo": {"dp": dp, "tp": tp}}
+
+
+def rank_worker(spec_path: str) -> None:
+    """The body of one rank: the spec's CLI calls (``argvs``), then its
+    gloo steps (``gloo``), and its wall seconds, written to
+    ``<spec["out"]><rank>``."""
+    sys.path.insert(0, REPO)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    t0 = time.perf_counter()
+    out = rank_cli(spec["argvs"]) if "argvs" in spec else {}
+    if "gloo" in spec:
+        out.update(rank_gloo(spec["gloo"]))
+    out.update(rank=rank, seconds=time.perf_counter() - t0)
+    with open(f"{spec['out']}{rank}", "w") as f:
+        json.dump(out, f)
+
+
+def rows_of(path: str) -> list:
+    with open(path) as f:
+        return sorted(line.rstrip("\n").split("\t") for line in f)
+
+
+def compare_calls(tag: str, got: list, want: list, dtype_name: str) -> dict:
+    """Sorted call rows against sorted call rows: the same sites, every
+    column but the probabilities byte-identical (the label too, except at
+    a site with |p1 - p0| below MARGIN in ``want``, where the batches'
+    other row counts may pick another cuBLAS or cuDNN kernel), the
+    probabilities within DPROB_TOL."""
+    check(len(got) == len(want) > 0, f"{tag}: {len(got)} rows for "
+          f"{len(want)}")
+    key = [r[:6] for r in got]
+    check(key == [r[:6] for r in want], f"{tag}: not the same sites")
+    p_got = np.array([[float(r[6]), float(r[7])] for r in got])
+    p_want = np.array([[float(r[6]), float(r[7])] for r in want])
+    near = np.abs(p_want[:, 1] - p_want[:, 0]) < MARGIN
+    labels_differ = np.array([g[8] != w[8] for g, w in zip(got, want)])
+    check(not (labels_differ & ~near).any(), f"{tag}: "
+          f"{int((labels_differ & ~near).sum())} labels differ")
+    check(all(g[9:] == w[9:] for g, w in zip(got, want)),
+          f"{tag}: k-mer column differs")
+    dprob = float(np.abs(p_got - p_want).max())
+    check(dprob <= DPROB_TOL[dtype_name], f"{tag}: max |dprob| {dprob}")
+    return {"rows": len(got), "max_abs_dprob": dprob,
+            "labels_differ_near_margin": int(labels_differ.sum())}
+
+
+def run_two_ranks(tsv: str, ckpt: str, files: dict, work: str, card: str,
+                  device: str = "cuda:0") -> tuple:
+    """Two ranks on cuda:0 under torchrun: ``call_mods`` through the CLI in
+    bfloat16 and then float32 (each call makes and destroys the default
+    NCCL group, which makes no communicator, since inference issues no
+    collective), then the gloo steps of ``check_gloo`` in a gloo group.
+    Returns the results of ``check_call_shards`` and ``check_gloo``."""
+    dtypes = ("bfloat16", "float32")
+    outs = [os.path.join(work, f"calls_2ranks_{d}.tsv") for d in dtypes]
+    argvs = [["call_mods", "-i", tsv, "-m", ckpt, "-o", out, "--batch_size",
+              str(B), "--f5_batch_num", str(READS_PER_BATCH),
+              "--compute_dtype", d, "--device", device]
+             for d, out in zip(dtypes, outs)]
+    gloo = {"model": {}, "batch": TRAIN_B, "seed": 13, "device": device,
+            "train_bin": files["train_bin"], "dp_steps": 3, "lr": PARITY_LR}
+    t0 = time.time()
+    ranks = torchrun(2, {"argvs": argvs, "gloo": gloo}, work, "two_ranks")
+    wall = time.time() - t0
+    print(f"parallel: 2 ranks under torchrun: {wall:.1f} s wall, "
+          f"{[round(r['seconds'], 1) for r in ranks]} s in the ranks | "
+          f"{card}", flush=True)
+    return (check_call_shards(ranks, dtypes, outs, work, card),
+            {**check_gloo(ranks, gloo, card), "torchrun_wall_s": wall})
+
+
+def check_call_shards(ranks: list, dtypes: tuple, outs: list, work: str,
+                      card: str) -> list:
+    """Each rank's part file holds its stride shard of the 10 read
+    batches, its K1 launches equal its device batches, and the merged rows
+    equal the single-process e2e run's."""
+    from deepsignal_tpu_torch.parallel.dist import merge_call_shards
+
+    results = []
+    for c, (dtype_name, out) in enumerate(zip(dtypes, outs)):
+        tag = f"parallel call_mods {dtype_name}"
+        per_rank = []
+        for r, res in enumerate(ranks):
+            with open(f"{out}.part{r}-of-2") as f:
+                n = sum(1 for _ in f)
+            batches = -(-n // B)
+            launches = res["calls"][c]["k1_launches"]
+            check(n == N_ROWS // 2, f"{tag}: rank {r} wrote {n} rows")
+            check(launches == batches, f"{tag}: rank {r} launched K1 "
+                  f"{launches} times for {batches} device batches")
+            per_rank.append({"rank": r, "rows": n, "device_batches": batches,
+                             "k1_launches": launches,
+                             "seconds": res["calls"][c]["seconds"]})
+            print(f"{tag}: rank {r}: {n} rows, K1 {launches} launches, "
+                  f"{res['calls'][c]['seconds']:.3f} s | {card}", flush=True)
+        merged = merge_call_shards(out, 2, remove_shards=True)
+        cmp = compare_calls(tag, rows_of(merged),
+                            rows_of(os.path.join(work,
+                                                 f"calls_{dtype_name}.tsv")),
+                            dtype_name)
+        res = {"dtype": dtype_name, "ranks": per_rank,
+               "launches": sum(r["k1_launches"] for r in per_rank), **cmp}
+        print(f"{tag}: {json.dumps(res)}", flush=True)
+        results.append(res)
+    return results
+
+
+def run_sharded_reads(reads: list, ckpt: str, work: str) -> dict:
+    """``stream_read_feature_batches`` with ``host_shard=(k, 2)`` for k = 0
+    and 1 in turn in this process, called in bfloat16: each shard's K1
+    launches equal its device batches, and the union of the calls equals
+    the unsharded e2e reads run's."""
+    import dataclasses
+
+    from deepsignal_tpu_torch.core.config import FeatureConfig
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.runtime.caller import (ModCaller,
+                                                     call_mods_on_batches)
+    from deepsignal_tpu_torch.runtime.pipeline import \
+        stream_read_feature_batches
+    from deepsignal_tpu_torch.train.checkpoints import load_checkpoint
+
+    cfg, variables = load_checkpoint(ckpt)
+    caller = ModCaller(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                       variables, batch_size=B)
+    rows, shards = [], []
+    for k in range(2):
+        out = os.path.join(work, f"calls_reads_shard{k}.tsv")
+        bilstm_encoder_fused.launches = 0
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            stream = stream_read_feature_batches(
+                reads, FeatureConfig(), nproc=EXTRACT_NPROC,
+                f5_batch_num=READS_PER_WORKER_BATCH, host_shard=(k, 2))
+            try:
+                n = call_mods_on_batches(caller, stream, out)
+            finally:
+                stream.close()
+        seconds = time.perf_counter() - t0
+        launches = bilstm_encoder_fused.launches
+        check(launches == -(-n // B), f"sharded reads {k}: K1 launched "
+              f"{launches} times for {n} sites")
+        shard_rows = rows_of(out)
+        check({r[4] for r in shard_rows}
+              == {r.read_id for r in reads[k::2]},
+              f"sharded reads {k}: not the reads of its stride")
+        rows += shard_rows
+        shards.append({"shard": k, "sites": n, "k1_launches": launches,
+                       "seconds": seconds})
+    cmp = compare_calls("sharded reads", sorted(rows),
+                        rows_of(os.path.join(work,
+                                             "calls_reads_bfloat16.tsv")),
+                        "bfloat16")
+    res = {"shards": shards, **cmp,
+           "launches": sum(s["k1_launches"] for s in shards)}
+    print(f"sharded reads: {json.dumps(res)}", flush=True)
+    return res
+
+
+def run_train_world1(files: dict, work: str, card: str,
+                     device: str = "cuda") -> dict:
+    """``train`` through the CLI under torchrun at world size 1, NCCL,
+    float32, WORLD1_STEPS steps at PARITY_LR: its per-step loss and counts
+    against the non-distributed ``train()`` on the same file and seed,
+    within the spread of two non-distributed runs measured first (cuDNN's
+    and the embedding's backward are not bitwise deterministic), with a
+    floor of STEP_TOL on the loss where the two runs agree exactly; its
+    checkpoint read back by ``run_call_mods``; and the ms per step of both,
+    the difference being what the group and its collectives cost."""
+    import torch
+
+    from deepsignal_tpu_torch.core.config import ModelConfig, TrainConfig
+    from deepsignal_tpu_torch.io.feature_codec import binary_record_dtype
+    from deepsignal_tpu_torch.train.data import open_dataset
+    from deepsignal_tpu_torch.train.trainer import train
+
+    train_bin = os.path.join(work, "train_world1.bin")
+    np.fromfile(files["train_bin"], dtype=binary_record_dtype(T, 360))[
+        :WORLD1_STEPS * TRAIN_B].tofile(train_bin)
+    tcfg = TrainConfig(batch_size=TRAIN_B, learning_rate=PARITY_LR,
+                       keep_prob=0.5, max_epoch_num=1, min_epoch_num=1,
+                       display_step=2, seed=11, save_state=False)
+    refs = []
+    for i in range(2):
+        trainer = recording_trainer(ModelConfig(), tcfg, device)
+        train(train_bin, files["valid_bin"],
+              os.path.join(work, f"model_ref{i}"), None, ModelConfig(),
+              tcfg, is_binary=True, trainer=trainer)
+        refs.append({"losses": trainer.losses, "counts": trainer.counts})
+    batch = next(open_dataset(train_bin, True).batches(TRAIN_B))
+    ref_ms = step_ms(trainer, trainer.stage_batch(batch), reps=5)
+    del trainer
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+    model_dir = os.path.join(work, "model_world1")
+    argv = ["train", "--train_file", train_bin, "--valid_file",
+            files["valid_bin"], "--is_binary", "yes", "--model_dir",
+            model_dir, "--log_dir", os.path.join(work, "logs_world1"),
+            "--batch_size", str(TRAIN_B), "--learning_rate", str(PARITY_LR),
+            "--keep_prob", "0.5", "--max_epoch_num", "1", "--min_epoch_num",
+            "1", "--display_step", "2", "--seed", "11", "--device", device]
+    (rank0,) = torchrun(1, {"argvs": [argv]}, work, "train_world1")
+    tag = "parallel train world 1"
+    check(rank0["mesh"] == {"data": 1, "model": 1}
+          and rank0["device"] == ("cuda:0" if device == "cuda" else device),
+          f"{tag}: mesh {rank0['mesh']} on {rank0['device']}")
+    a, b = refs
+    check(len(rank0["steps"]) == len(a["losses"]) == WORLD1_STEPS,
+          f"{tag}: {len(rank0['steps'])} steps")
+    check(rank0["k2_launches"] == 6 * WORLD1_STEPS == rank0["k2_resident"],
+          f"{tag}: K2 launched {rank0['k2_launches']} times "
+          f"({rank0['k2_resident']} resident) in {WORLD1_STEPS} steps")
+    worst = 0.0
+    for i, st in enumerate(rank0["steps"]):
+        spread = abs(a["losses"][i] - b["losses"][i])
+        bound = max(spread, STEP_TOL["float32"] * abs(a["losses"][i]))
+        d = abs(st["loss"] - a["losses"][i])
+        worst = max(worst, d / bound)
+        check(d <= bound, f"{tag}: step {i} loss {st['loss']} vs "
+              f"{a['losses'][i]} (two runs {spread:.3e} apart)")
+        cspread = np.abs(np.subtract(a["counts"][i], b["counts"][i]))
+        dc = np.abs(np.subtract(st["counts"], a["counts"][i]))
+        check((dc <= cspread).all(), f"{tag}: step {i} counts "
+              f"{st['counts']} vs {a['counts'][i]} and {b['counts'][i]}")
+    check(rank0["model_path"] is not None
+          and os.path.isdir(rank0["model_path"]),
+          f"{tag}: no checkpoint in {model_dir}")
+    # a few steps at PARITY_LR learn little: the call must only load it
+    score = score_checkpoint("float32", rank0["model_path"], files, work,
+                             min_accuracy=0.0)
+    res = {"steps": len(rank0["steps"]),
+           "loss_max_diff_over_bound": worst,
+           "ms_per_step": rank0["ms_per_step"],
+           "ms_per_step_non_distributed": ref_ms,
+           "grad_allreduce_mb": rank0["grad_bytes"] / 1e6,
+           "k1_launches": rank0["calls"][0]["k1_launches"],
+           "k2_launches": rank0["k2_launches"],
+           "seconds": rank0["seconds"], "score": score,
+           "loss": [st["loss"] for st in rank0["steps"]],
+           "loss_non_distributed": refs[0]["losses"]}
+    print(f"{tag}: {rank0['ms_per_step']:.1f} ms per step under NCCL "
+          f"(non-distributed {ref_ms:.1f}), all-reduce of "
+          f"{rank0['grad_bytes'] / 1e6:.1f} MB a step | {card}", flush=True)
+    print(f"{tag}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def check_gloo(ranks: list, spec: dict, card: str) -> dict:
+    """The two ranks' gloo steps on cuda:0 (NCCL refuses two ranks on one
+    card): 3 float32 data-parallel steps of the global batch TRAIN_B and
+    one fc1 tensor-parallel step, against the same steps in this process
+    without a mesh.  Counts exact and the same on both ranks, loss and a
+    float64 params checksum within STEP_TOL, every K2 launch resident at
+    the per-rank batch."""
+    import torch
+
+    tag = "parallel gloo"
+    res = {}
+    for part, steps in (("dp", spec["dp_steps"]), ("tp", 1)):
+        want = recorded_train(spec, None, steps)
+        if spec["device"] != "cpu":
+            torch.cuda.empty_cache()
+        got = [r["gloo"][part] for r in ranks]
+        check(got[0]["steps"] == got[1]["steps"]
+              and got[0]["checksum"] == got[1]["checksum"],
+              f"{tag} {part}: the ranks differ")
+        for g, w in zip(got[0]["steps"], want["steps"]):
+            check(g["counts"] == w["counts"], f"{tag} {part}: counts "
+                  f"{g['counts']} vs {w['counts']}")
+            check(abs(g["loss"] - w["loss"])
+                  <= STEP_TOL["float32"] * abs(w["loss"]),
+                  f"{tag} {part}: loss {g['loss']} vs {w['loss']}")
+        rel = abs(got[0]["checksum"] - want["checksum"]) / abs(
+            want["checksum"])
+        check(rel <= STEP_TOL["float32"], f"{tag} {part}: params checksum "
+              f"{got[0]['checksum']} vs {want['checksum']}")
+        for r in got:
+            check(r["local_batch"] == TRAIN_B // (2 if part == "dp" else 1)
+                  and r["k2_launches"] == 6 * steps == r["k2_resident"],
+                  f"{tag} {part}: K2 {r['k2_launches']} launches, "
+                  f"{r['k2_resident']} resident, at batch "
+                  f"{r['local_batch']}")
+        res[part] = {"steps": steps, "checksum_rel_diff": rel,
+                     "loss": [s["loss"] for s in got[0]["steps"]],
+                     "loss_one_process": [s["loss"] for s in want["steps"]],
+                     "ms_per_step": [r["ms_per_step"] for r in got],
+                     "ms_per_step_one_process": want["ms_per_step"],
+                     "k2_launches": sum(r["k2_launches"] for r in got),
+                     "fc1_rows": got[0]["fc1_rows"],
+                     "local_batch": got[0]["local_batch"]}
+        print(f"{tag} {part}: ms per step by rank "
+              f"{[np.round(r['ms_per_step'], 1).tolist() for r in got]}, "
+              f"one process {np.round(want['ms_per_step'], 1).tolist()} | "
+              f"{card}", flush=True)
+    print(f"{tag}: {json.dumps(res)}", flush=True)
+    return res
 
 def main() -> None:
     import torch
@@ -2291,6 +2799,11 @@ def main() -> None:
                                        profiled=True)
         e2e_reads.append(res)
     fast5 = check_fast5_entry(ckpt, work)
+    t0 = time.time()
+    parallel = {"sharded_reads": run_sharded_reads(reads, ckpt, work)}
+    launches["K1", "bfloat16"]["sharded_reads"] = \
+        parallel["sharded_reads"]["launches"]
+    phase_s = time.time() - t0
     del reads
     tf1 = run_tf1(tsv, work)
     for dtype_name in dtypes:
@@ -2326,6 +2839,21 @@ def main() -> None:
     launches["K2", "float32"]["denoise"] = denoised["k2_launches"]
     parity = {d: check_step_parity(d, device) for d in dtypes}
 
+    t0 = time.time()
+    parallel["call_mods"], gloo = run_two_ranks(tsv, ckpt, files, work, card)
+    parallel["gloo_2ranks"] = gloo
+    for res in parallel["call_mods"]:
+        launches["K1", res["dtype"]]["call_mods_2ranks"] = res["launches"]
+    world1 = parallel["train_world1"] = run_train_world1(files, work, card)
+    launches["K1", "float32"]["train_world1"] = world1["k1_launches"]
+    launches["K2", "float32"]["train_world1"] = world1["k2_launches"]
+    launches["K1", "float32"]["train_world1_score"] = \
+        world1["score"]["k1_launches"]
+    launches["K2", "float32"]["gloo_2ranks"] = \
+        gloo["dp"]["k2_launches"] + gloo["tp"]["k2_launches"]
+    parallel["seconds"] = phase_s + time.time() - t0
+    print(f"parallel: {parallel['seconds']:.1f} s | {card}", flush=True)
+
     rows = []
     for kernel, by_dtype in (("K1", k1_rows), ("K2", k2_rows)):
         for d in dtypes:
@@ -2342,7 +2870,7 @@ def main() -> None:
                       "reads": {"featurize": featurized,
                                 "extract": extracted, "e2e": e2e_reads,
                                 "fast5": fast5},
-                      "tf1": tf1, "tools": tools,
+                      "tf1": tf1, "tools": tools, "parallel": parallel,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2351,4 +2879,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_worker(sys.argv[2])
+    else:
+        main()

@@ -16,6 +16,15 @@ port always runs its CUDA kernels on the card.  Only the handlers of
 ``call_mods``, ``train``, ``denoise`` and ``runner`` import torch; the
 other subcommands are host code.  The random tools draw unseeded, as the
 JAX package's CLI does.
+
+Under ``torchrun --nproc_per_node N`` (one process per GPU; each rank on
+``cuda:{LOCAL_RANK}`` unless ``--device`` names a card), ``call_mods``,
+``train`` and ``denoise`` first make the process group
+(``parallel/dist.py``) and destroy it when they end: ``call_mods`` calls
+rank k's stride shard of the input into ``<result_file>.part<k>-of-<N>``,
+``train`` and ``denoise`` train on the mesh of all ranks, as the JAX
+CLI's ``make_mesh()`` over all devices does.  Without torchrun's
+environment no group is made.
 """
 
 from __future__ import annotations
@@ -67,9 +76,17 @@ def main_extract(args) -> int:
     return 0
 
 
+def _group_mesh():
+    """The mesh of every rank when a process group is up, else None."""
+    from ..parallel.dist import group_is_up
+    from ..parallel.mesh import make_mesh
+    return make_mesh() if group_is_up() else None
+
+
 def main_call_mods(args) -> None:
     display_args(args)
     from ..core.config import ModelConfig
+    from ..parallel.dist import distributed
     from ..runtime.caller import run_call_mods
     feature_cfg = _feature_cfg_from_args(args)
     override = None
@@ -78,19 +95,21 @@ def main_call_mods(args) -> None:
             kmer_len=args.kmer_len, cent_signals_len=args.cent_signals_len,
             class_num=args.class_num, is_cnn=str2bool(args.is_cnn),
             is_rnn=str2bool(args.is_rnn), is_base=str2bool(args.is_base))
-    run_call_mods(args.input_path, args.model_path, args.result_file,
-                  feature_cfg, batch_size=args.batch_size,
-                  f5_batch_num=args.f5_batch_num,
-                  model_cfg_override=override,
-                  compute_dtype=args.compute_dtype, device=args.device,
-                  nproc=args.nproc, reference_path=args.reference_path,
-                  position_file=args.positions,
-                  is_recursive=str2bool(args.recursively))
+    with distributed(args.device):
+        run_call_mods(args.input_path, args.model_path, args.result_file,
+                      feature_cfg, batch_size=args.batch_size,
+                      f5_batch_num=args.f5_batch_num,
+                      model_cfg_override=override,
+                      compute_dtype=args.compute_dtype, device=args.device,
+                      nproc=args.nproc, reference_path=args.reference_path,
+                      position_file=args.positions,
+                      is_recursive=str2bool(args.recursively))
 
 
 def main_train(args) -> None:
     display_args(args)
     from ..core.config import ModelConfig, TrainConfig
+    from ..parallel.dist import distributed
     from ..train.trainer import train
     mcfg = ModelConfig(
         kmer_len=args.kmer_len, cent_signals_len=args.cent_signals_len,
@@ -103,14 +122,17 @@ def main_train(args) -> None:
         max_epoch_num=args.max_epoch_num, min_epoch_num=args.min_epoch_num,
         display_step=args.display_step, pos_weight=args.pos_weight,
         seed=args.seed)
-    train(args.train_file, args.valid_file, args.model_dir, args.log_dir,
-          mcfg, tcfg, is_binary=str2bool(args.is_binary),
-          resume=str2bool(args.resume), device=args.device)
+    with distributed(args.device):
+        train(args.train_file, args.valid_file, args.model_dir, args.log_dir,
+              mcfg, tcfg, is_binary=str2bool(args.is_binary),
+              resume=str2bool(args.resume), device=args.device,
+              mesh=_group_mesh())
 
 
 def main_denoise(args) -> None:
     display_args(args)
     from ..core.config import DenoiseConfig, ModelConfig
+    from ..parallel.dist import distributed
     from ..train.denoise import denoise
     dcfg = DenoiseConfig(
         iterations=args.iterations, epoch_num=args.epoch_num,
@@ -126,7 +148,9 @@ def main_denoise(args) -> None:
         kmer_len=args.seq_len, cent_signals_len=args.cent_signals_len,
         class_num=args.class_num, is_cnn=dcfg.is_cnn, is_rnn=dcfg.is_rnn,
         is_base=dcfg.is_base, pos_weight=dcfg.pos_weight)
-    denoise(args.train_file, mcfg, dcfg, device=args.device)
+    with distributed(args.device):
+        denoise(args.train_file, mcfg, dcfg, device=args.device,
+                mesh=_group_mesh())
 
 
 def main_call_freq(args) -> None:

@@ -1,7 +1,10 @@
 """Device selection and the float32 rule.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; with no
-GPU they raise rather than quietly run on the CPU.
+GPU they raise rather than quietly run on the CPU.  Under torchrun (one
+process per GPU, ``parallel/dist.py``) ``cuda`` without an index is the
+rank's own card, ``cuda:{LOCAL_RANK}``; an explicit index is kept as
+given.
 
 The float32 rule: on the card a float32 matrix product runs in full float32
 only while ``torch.backends.cuda.matmul.allow_tf32`` is False, and a float32
@@ -14,16 +17,32 @@ affected by either flag.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raises when CUDA is asked for and missing."""
+    """``None`` -> ``cuda``; raises when CUDA is asked for and missing.
+
+    Under torchrun's ``LOCAL_RANK`` and ``WORLD_SIZE``, ``cuda`` without an
+    index is ``cuda:{LOCAL_RANK}``, and a ``LOCAL_RANK`` past the card
+    count raises rather than wraps around."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to "
                                "run on the CPU")
+        if dev.index is None and "LOCAL_RANK" in os.environ \
+                and "WORLD_SIZE" in os.environ:
+            local = int(os.environ["LOCAL_RANK"])
+            count = torch.cuda.device_count()
+            if local >= count:
+                raise RuntimeError(
+                    f"LOCAL_RANK {local} has no card: this machine has "
+                    f"{count}; launch at most {count} processes per node, "
+                    f"or give each an explicit cuda:<index>")
+            dev = torch.device("cuda", local)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":

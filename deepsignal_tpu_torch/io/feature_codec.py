@@ -224,18 +224,26 @@ def _write_binary_chunk(lines: list, wf, dtype: np.dtype) -> int:
 
 
 def iter_feature_batches_by_read(features_file: str,
-                                 reads_per_batch: int = 50
-                                 ) -> Iterator[FeatureBatch]:
+                                 reads_per_batch: int = 50,
+                                 host_shard=None) -> Iterator[FeatureBatch]:
     """Stream a feature TSV grouped by read (call_modifications.py:35-91):
     a read's rows stay in one batch; a batch is emitted whenever
     ``reads_per_batch`` distinct reads have completed.
 
+    ``host_shard=(k, n)`` keeps only every n-th read-grouped batch starting
+    at k, the per-rank stride partition of a feature TSV: every rank
+    computes the same global grouping, so the shards are disjoint and their
+    union is exactly the unsharded stream.  The batches of other ranks are
+    only line-grouped, never parsed.
+
     Lines are read as bytes and go to the native parser as one block, with
     no decode and encode of each line; rows split by "\\n" (or "\\r\\n")
     give the batches the text-mode read of the JAX package gives."""
+    k, n = host_shard if host_shard is not None else (0, 1)
     pending: list = []
     readid_pre: Optional[bytes] = None
     r_num = 0
+    b_num = 0
     with open(features_file, "rb") as rf:
         for line in rf:
             readid = line.split(b"\t", 5)[4]
@@ -245,10 +253,13 @@ def iter_feature_batches_by_read(features_file: str,
                 r_num += 1
                 readid_pre = readid
                 if r_num % reads_per_batch == 0:
-                    yield parse_feature_bytes(b"".join(pending))
+                    if b_num % n == k:
+                        yield parse_feature_bytes(b"".join(pending))
+                    b_num += 1
                     pending = []
-            pending.append(line)
-    if pending:
+            if b_num % n == k:
+                pending.append(line)
+    if pending and b_num % n == k:
         yield parse_feature_bytes(b"".join(pending))
 
 

@@ -22,7 +22,8 @@ from torch import nn
 
 from ..core.config import ModelConfig
 from ..core.device import torch_dtype
-from .layers import BiLSTMEncoder, InceptionNet, JointHead
+from ..parallel.mesh import param_shardings, shard_rows
+from .layers import BiLSTMEncoder, InceptionNet, JointHead, TFBatchNorm
 
 
 # std of a unit normal truncated to [-2, 2]: flax's variance_scaling divides
@@ -90,6 +91,22 @@ class DeepSignalNet(nn.Module):
         self.joint_model = JointHead(joint_dim, cfg.class_num)
         if not self.joint_model.fc1.weight.is_meta:
             init_weights(self, torch.Generator().manual_seed(seed))
+
+    def set_mesh(self, mesh) -> None:
+        """Run on ``mesh`` (``parallel/mesh.py``): batch norm, dropout and
+        the joint head take the global batch's semantics, and with a model
+        axis ``joint_model.fc1.weight`` keeps only this rank's output rows
+        (``param_shardings``).  Call it before an optimizer takes the
+        parameters."""
+        for m in self.modules():
+            if isinstance(m, (TFBatchNorm, BiLSTMEncoder, JointHead)):
+                m.mesh = mesh
+        for name, spec in param_shardings(self, mesh).items():
+            if spec:  # (MODEL_AXIS, None): this rank's output rows
+                owner, leaf = name.rsplit(".", 1)
+                module = self.get_submodule(owner)
+                setattr(module, leaf, nn.Parameter(shard_rows(
+                    getattr(module, leaf).detach(), mesh).clone()))
 
     def forward(self, kmer, means, stds, sanums, signals, train: bool = False,
                 keep_prob: float = 1.0,

@@ -21,6 +21,15 @@ PyTorch's defaults, the TF rule is written out:
 Modules take ``train`` (and ``keep_prob``, ``generator``) as arguments, as
 the flax modules do, and ignore ``nn.Module.training``.  Parameters are
 created empty; ``models.deepsignal.init_weights`` fills them.
+
+On a mesh of ranks (``parallel/mesh.py``, set by
+``DeepSignalNet.set_mesh``) a train step of n data ranks, each on its
+contiguous block of the global batch, computes what one process computes
+on the whole batch, as the JAX package's global mesh does: batch norm
+takes the global batch's mean and biased variance (two differentiable sums
+over the data group), every rank draws each dropout mask at the global
+shape from the same generator and keeps its own rows, and with a model
+axis fc1's output rows are sharded and its activation all-gathered.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from torch import nn
 
 from ..ops.cuda.lstm import bilstm_encoder_fused, kernel_takes
 from ..ops.cuda.lstm_scan import lstm_layer_scan
+from ..parallel.mesh import local_block, model_parallel_linear, sum_over_data
 
 
 def tf_same_pads(length: int, window: int, stride: int):
@@ -48,15 +58,21 @@ def _ceil_half(n: int) -> int:
 
 
 def dropout(x: torch.Tensor, keep_prob: float,
-            generator: torch.Generator) -> torch.Tensor:
+            generator: torch.Generator, mesh=None) -> torch.Tensor:
     """flax ``nn.Dropout(rate=1 - keep_prob)`` in training: each value kept
     with probability ``keep_prob`` and scaled by ``1 / keep_prob``, the bits
-    drawn from ``generator`` (on x's device)."""
+    drawn from ``generator`` (on x's device).  With ``mesh`` the mask is
+    drawn at the global batch's shape and this rank keeps its block's rows,
+    the mask one process draws for the whole batch."""
     if keep_prob >= 1.0:
         return x
     if keep_prob <= 0.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    data = 1 if mesh is None else mesh.data
+    keep = torch.rand((x.shape[0] * data, *x.shape[1:]), generator=generator,
+                      device=x.device) < keep_prob
+    if data > 1:
+        keep = local_block(keep, mesh.data_rank, data)
     return torch.where(keep, x / keep_prob, x.new_zeros(()))
 
 
@@ -89,6 +105,7 @@ class BiLSTMEncoder(nn.Module):
         super().__init__()
         self.hidden = hidden
         self.num_layers = num_layers
+        self.mesh = None
         for i in range(num_layers):
             d = in_dim if i == 0 else hidden
             self.add_module(f"fw_{i}", TFLSTMLayer(d, hidden))
@@ -113,8 +130,8 @@ class BiLSTMEncoder(nn.Module):
             fw = lstm_layer_scan(fw, kf[i], bf[i], reverse=False)
             bw = lstm_layer_scan(bw, kb[i], bb[i], reverse=True)
             if dropout_live:
-                fw = dropout(fw, keep_prob, generator)
-                bw = dropout(bw, keep_prob, generator)
+                fw = dropout(fw, keep_prob, generator, self.mesh)
+                bw = dropout(bw, keep_prob, generator, self.mesh)
         # Event_model (layers.py:169-173): last fw step, first bw step
         return torch.cat([fw[:, -1], bw[:, 0]], dim=1)
 
@@ -126,7 +143,8 @@ class TFBatchNorm(nn.Module):
     In training it normalizes with the batch's mean and biased variance
     over (B, L) and moves the float32 running statistics in place:
     ``stat = m * stat + (1 - m) * batch_stat`` with m and 1 - m the float32
-    values the JAX package uses."""
+    values the JAX package uses.  On a mesh the batch statistics are the
+    global batch's, the same on every rank, and so are the running ones."""
 
     def __init__(self, features: int, epsilon: float = 1e-3,
                  momentum: float = 0.9):
@@ -138,12 +156,26 @@ class TFBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.mesh = None
+
+    def _global_stats(self, x: torch.Tensor):
+        """The global batch's mean and biased variance over (B, L): sums
+        in float32 over the block, summed over the data group."""
+        n = x.shape[0] * self.mesh.data * x.shape[2]
+        mean = (sum_over_data(x.sum(dim=(0, 2), dtype=torch.float32),
+                              self.mesh) / n).to(x.dtype)
+        sq = torch.square(x - mean[:, None]).sum(dim=(0, 2),
+                                                 dtype=torch.float32)
+        return mean, (sum_over_data(sq, self.mesh) / n).to(x.dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = x.dtype
         if train:
-            mean = x.mean(dim=(0, 2))
-            var = torch.square(x - mean[:, None]).mean(dim=(0, 2))
+            if self.mesh is None:
+                mean = x.mean(dim=(0, 2))
+                var = torch.square(x - mean[:, None]).mean(dim=(0, 2))
+            else:
+                mean, var = self._global_stats(x)
             with torch.no_grad():
                 self.mean.copy_(self._keep * self.mean
                                 + self._take * mean.float())
@@ -263,19 +295,24 @@ class JointHead(nn.Module):
     """Joint FC head (layers.py:242-273): fc1 (same width) -> dropout -> fc2
     -> dropout, no biases, computed in the input dtype.  The dropout after
     the logits is the reference's quirk, kept; both are identity at
-    inference."""
+    inference.  On a mesh with a model axis ``fc1.weight`` holds this
+    rank's output rows (``DeepSignalNet.set_mesh``)."""
 
     def __init__(self, in_dim: int, class_num: int = 2):
         super().__init__()
         self.fc1 = Dense(in_dim, in_dim)
         self.fc2 = Dense(in_dim, class_num)
+        self.mesh = None
 
     def forward(self, joint: torch.Tensor, train: bool = False,
                 keep_prob: float = 1.0,
                 generator: torch.Generator = None) -> torch.Tensor:
         dt = joint.dtype
-        fc1 = F.linear(joint, self.fc1.weight.to(dt))
+        w1 = self.fc1.weight.to(dt)
+        fc1 = F.linear(joint, w1) if self.mesh is None else \
+            model_parallel_linear(joint, w1, self.mesh)
         if train:
-            fc1 = dropout(fc1, keep_prob, generator)
+            fc1 = dropout(fc1, keep_prob, generator, self.mesh)
         fc2 = F.linear(fc1, self.fc2.weight.to(dt))
-        return dropout(fc2, keep_prob, generator) if train else fc2
+        return dropout(fc2, keep_prob, generator, self.mesh) if train \
+            else fc2

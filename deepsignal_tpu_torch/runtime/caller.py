@@ -1,6 +1,7 @@
 """Modification-calling engine (port of deepsignal_tpu/runtime/caller.py).
 
-One model on one device.  Feature batches are cut into fixed
+One model on one device (under a process group, one per rank, each on
+its shard of the input: ``run_call_mods``).  Feature batches are cut into fixed
 ``batch_size`` device batches (the last one padded by repeating its last
 row), shipped in a compact wire format through pinned host memory with
 non-blocking copies, and scored; the sigmoid and argmax run on the device,
@@ -29,6 +30,7 @@ from ..core.logging import ThroughputMeter, nvtx_range, trace
 from ..io.calls_codec import count_read_runs, format_call_block
 from ..io.feature_codec import FeatureBatch
 from ..models.deepsignal import model_from_state_dict, predictions
+from ..parallel.dist import rank_and_world, shard_output_path
 from ..train.checkpoints import load_checkpoint, variables_to_state_dict
 from .pipeline import (stream_fast5_feature_batches,
                        stream_file_feature_batches)
@@ -243,19 +245,29 @@ def run_call_mods(input_path: str, model_path: str, result_file: str,
     ``device="cpu"`` for the CPU.  ``compute_dtype=None`` selects
     ``DEFAULT_COMPUTE_DTYPE`` (bfloat16); pass "float32" for the
     reference-parity path.  With ``profile_dir`` the calling loop runs
-    under ``core/logging.py::trace``, which writes a Chrome trace there."""
+    under ``core/logging.py::trace``, which writes a Chrome trace there.
+
+    Under a process group (``parallel/dist.py``) rank k of n calls its
+    stride shard of the input, the k-th of the sorted fast5 list or of the
+    read-grouped batches of the TSV, on its own device, and writes
+    ``<result_file>.part<k>-of-<n>``.  No collective runs: the ranks finish
+    on their own, and ``merge_call_shards`` joins their files."""
     start = time.time()
     device = resolve_device(device)
     feature_cfg = feature_cfg or FeatureConfig()
     input_path = os.path.abspath(input_path)
+    host_shard = rank_and_world()
+    result_file = shard_output_path(result_file, *host_shard)
     if os.path.isdir(input_path):
         batches = stream_fast5_feature_batches(
             input_path, feature_cfg, reference_path=reference_path,
             nproc=nproc, f5_batch_num=f5_batch_num,
-            position_file=position_file, is_recursive=is_recursive)
+            position_file=position_file, is_recursive=is_recursive,
+            host_shard=host_shard)
     else:
         batches = stream_file_feature_batches(input_path, f5_batch_num,
-                                              background=True)
+                                              background=True,
+                                              host_shard=host_shard)
     try:
         cfg, variables = load_checkpoint(os.path.abspath(model_path),
                                          cfg=model_cfg_override)

@@ -57,6 +57,7 @@ from ..io import native
 from ..io.fast5 import ResquiggledRead, get_fast5s, import_h5py
 from ..io.fasta import get_contig2len
 from ..io.feature_codec import FeatureBatch, iter_feature_batches_by_read
+from ..parallel.dist import shard_file_list
 
 QUEUE_MAX_BATCHES = 100  # backpressure bound, as in the JAX package
 READER_POLL_S = 0.5      # how long a wait lasts before it checks liveness
@@ -66,13 +67,15 @@ WRITER_NAME = "feature-writer"
 JOIN_S = 10.0            # how long a finished process may take to exit
 
 
-def _file_reader_proc(features_file: str, batch_q, reads_per_batch: int):
-    """Queue the file's read-grouped batches, then ``("done", n)`` with the
+def _file_reader_proc(features_file: str, batch_q, reads_per_batch: int,
+                      host_shard=None):
+    """Queue the file's read-grouped batches (of ``host_shard``, see
+    ``iter_feature_batches_by_read``), then ``("done", n)`` with the
     reader's count of native parses; an exception is queued instead, for
     the consumer to raise."""
     try:
         for fb in iter_feature_batches_by_read(features_file,
-                                               reads_per_batch):
+                                               reads_per_batch, host_shard):
             batch_q.put(fb)
     except Exception as exc:  # handed to the consumer, which raises it
         batch_q.put(exc)
@@ -85,13 +88,14 @@ class _ReaderStream:
     when the stream is made, so that its start and first parse run beside
     the caller's own set-up; ``close()`` stops it, read or not."""
 
-    def __init__(self, features_file: str, reads_per_batch: int):
+    def __init__(self, features_file: str, reads_per_batch: int,
+                 host_shard=None):
         ctx = mp.get_context("spawn")
         self._file = features_file
         self._q = ctx.Queue(maxsize=QUEUE_MAX_BATCHES)
         self._reader = ctx.Process(
             target=_file_reader_proc,
-            args=(features_file, self._q, reads_per_batch),
+            args=(features_file, self._q, reads_per_batch, host_shard),
             name=READER_NAME, daemon=True)
         self._reader.start()
         self._items = self._consume()
@@ -140,16 +144,19 @@ class _ReaderStream:
 
 
 def stream_file_feature_batches(features_file: str, reads_per_batch: int = 50,
-                                background: bool = True
+                                background: bool = True, host_shard=None
                                 ) -> Iterator[FeatureBatch]:
     """Read-grouped TSV streaming (``iter_feature_batches_by_read``), by
-    default in a background reader process, started by this call.  The
+    default in a background reader process, started by this call.
+    ``host_shard=(k, n)`` takes every n-th read-grouped batch starting at
+    k, the per-rank stride partition.  The
     reader's native parses are added to ``native.parse_feature_block.calls``
     at the end of the file.  ``close()`` on the stream stops the reader,
     also when the stream was never read."""
     if not background:
-        return iter_feature_batches_by_read(features_file, reads_per_batch)
-    return _ReaderStream(features_file, reads_per_batch)
+        return iter_feature_batches_by_read(features_file, reads_per_batch,
+                                            host_shard)
+    return _ReaderStream(features_file, reads_per_batch, host_shard)
 
 
 # --------------------------------------------------------------------------
@@ -415,12 +422,17 @@ def _write_rows_dir(write_dir: str, conn, w_batch_num: int) -> None:
 
 
 def _preprocess(fast5_dir: str, reference_path, position_file,
-                is_recursive: bool):
-    """The directory's fast5 files, the contig lengths and the positions
-    filter; raises the ImportError that names h5py where h5py is missing,
-    before any worker starts."""
+                is_recursive: bool, host_shard=None):
+    """The directory's fast5 files (with ``host_shard=(k, n)``, n > 1, the
+    k-th stride shard of the sorted list), the contig lengths and the
+    positions filter; raises the ImportError that names h5py where h5py is
+    missing, before any worker starts."""
     import_h5py()
     fast5_files = get_fast5s(fast5_dir, is_recursive)
+    if host_shard is not None and host_shard[1] > 1:
+        fast5_files = shard_file_list(fast5_files, *host_shard)
+        print("host {}/{}: {} fast5 files in shard..".format(
+            host_shard[0], host_shard[1], len(fast5_files)))
     print("{} fast5 files in total..".format(len(fast5_files)))
     chrom2len = get_contig2len(reference_path) if reference_path else None
     positions = read_position_file(position_file) if position_file else None
@@ -455,16 +467,20 @@ def run_extract_reads(reads: list, write_path: str, cfg: FeatureConfig,
     writer.start()
     writer_end.close()
     n_rows = 0
+
+    def to_write(item) -> None:
+        try:
+            to_writer.send(item)
+        except OSError:  # the writer ended: its exit code says why
+            writer.join(timeout=JOIN_S)
+            raise RuntimeError(f"the feature writer of {write_path} ended "
+                               f"with exit code {writer.exitcode}") from None
+
     try:
         for rows in pool:
-            try:
-                to_writer.send(rows)
-            except OSError:
-                raise RuntimeError(f"the feature writer of {write_path} "
-                                   f"ended with exit code "
-                                   f"{writer.exitcode}") from None
+            to_write(rows)
             n_rows += len(rows)
-        to_writer.send(None)
+        to_write(None)
         writer.join(timeout=JOIN_S)
         if writer.exitcode != 0:
             raise RuntimeError(f"the feature writer of {write_path} ended "
@@ -542,7 +558,8 @@ def stream_read_feature_batches(reads: list, cfg: FeatureConfig,
                                 chrom2len: Optional[dict] = None,
                                 positions: Optional[set] = None,
                                 nproc: int = 2, f5_batch_num: int = 50,
-                                stats: Optional[dict] = None
+                                stats: Optional[dict] = None,
+                                host_shard=None
                                 ) -> Iterator[FeatureBatch]:
     """Featurize ``reads`` (fast5 paths or ``ResquiggledRead``s) in
     ``nproc - 1`` worker processes (at least one), started by this call, in
@@ -551,7 +568,10 @@ def stream_read_feature_batches(reads: list, cfg: FeatureConfig,
     it stops the workers.  ``stats`` receives "workers" (the worker
     processes) while it runs, then "errors", "lost_batches",
     "crashed_workers", "n_batches", "n_workers" and "first_batch_s" (from
-    the workers' start to the first answer)."""
+    the workers' start to the first answer).  ``host_shard=(k, n)`` keeps
+    every n-th read starting at k, in the order ``reads`` gives them."""
+    if host_shard is not None:
+        reads = reads[host_shard[0]::host_shard[1]]
     n_workers = _n_workers(nproc)
     motif_seqs = get_motif_seqs(cfg.motifs, cfg.is_dna)
     pool = _ExtractPool(_batched(reads, f5_batch_num), cfg, motif_seqs,
@@ -564,12 +584,14 @@ def stream_fast5_feature_batches(fast5_dir: str, cfg: FeatureConfig,
                                  nproc: int = 2, f5_batch_num: int = 50,
                                  position_file: Optional[str] = None,
                                  is_recursive: bool = True,
-                                 stats: Optional[dict] = None
+                                 stats: Optional[dict] = None,
+                                 host_shard=None
                                  ) -> Iterator[FeatureBatch]:
     """FeatureBatches of a directory of fast5 files
     (call_modifications.py:353-414): ``stream_read_feature_batches`` over
-    its files."""
+    its files, with ``host_shard=(k, n)`` over the k-th stride shard of
+    the sorted list."""
     fast5_files, chrom2len, positions = _preprocess(
-        fast5_dir, reference_path, position_file, is_recursive)
+        fast5_dir, reference_path, position_file, is_recursive, host_shard)
     return stream_read_feature_batches(fast5_files, cfg, chrom2len,
                                        positions, nproc, f5_batch_num, stats)

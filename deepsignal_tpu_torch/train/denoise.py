@@ -15,6 +15,12 @@ seeds it.  The random split and the negative draw take a
 ``random.Random(seed)``, the shuffle-concat a ``np.random.default_rng(seed)``:
 with the module ``random`` seeded alike and numpy's unseeded generator
 replaced by that one, the JAX package draws the same numbers.
+
+On a mesh of ranks (``parallel/mesh.py``) every half trains on the mesh,
+and rank 0 alone writes and removes the files, drawing the random numbers
+of the split and the negatives; the other ranks take its results by
+broadcast.  (The JAX package writes them from every process, which on one
+host would write each path from every rank at once.)
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 
 from ..core.config import DenoiseConfig, ModelConfig, TrainConfig
 from ..core.device import resolve_device
+from ..parallel.dist import run_on_lead
 from ..tools.dataset import (concat_two_files, count_line_num,
                              random_select_file_rows_s,
                              select_negsamples_asposkmer)
@@ -41,7 +48,7 @@ EARLY_STOP_ACCURACY = 0.95
 
 def train_1time(train_file: str, valid_file: str, valid_lidxs: list,
                 model_cfg: ModelConfig, dcfg: DenoiseConfig, seed: int = 0,
-                device=None) -> dict:
+                device=None, mesh=None) -> dict:
     """Train a fresh model on ``train_file`` and score ``valid_file``;
     returns {original line index: prob_1} (denoise.py:33-184).  Training
     stops early when an epoch's mean train accuracy reaches 0.95."""
@@ -50,7 +57,7 @@ def train_1time(train_file: str, valid_file: str, valid_lidxs: list,
                        decay_rate=dcfg.decay_rate, keep_prob=dcfg.keep_prob,
                        max_epoch_num=dcfg.epoch_num,
                        pos_weight=dcfg.pos_weight, seed=seed)
-    trainer = Trainer(model_cfg, tcfg, device=device)
+    trainer = Trainer(model_cfg, tcfg, device=device, mesh=mesh)
     train_ds = TextFeatureDataset(train_file)
     shuffle_rng = np.random.default_rng(seed)
 
@@ -116,7 +123,7 @@ def train_1time(train_file: str, valid_file: str, valid_lidxs: list,
 
 def train_rounds(train_file: str, iterstr: str, model_cfg: ModelConfig,
                  dcfg: DenoiseConfig, rng: random.Random, seed: int = 0,
-                 device=None) -> dict:
+                 device=None, mesh=None) -> dict:
     """One denoise iteration of cross-rank rounds (denoise.py:187-220):
     {line index: [prob_1 of each round]}."""
     print("\n##########Train Cross Rank##########")
@@ -130,18 +137,18 @@ def train_rounds(train_file: str, iterstr: str, model_cfg: ModelConfig,
               .format(iterstr, i + 1))
         f1 = fname + ".half1" + fext
         f2 = fname + ".half2" + fext
-        lidxs1, lidxs2 = random_select_file_rows_s(train_file, f1, f2,
-                                                   half_num, False, rng=rng)
+        lidxs1, lidxs2 = run_on_lead(
+            lambda: random_select_file_rows_s(train_file, f1, f2, half_num,
+                                              False, rng=rng), device=device)
         probs2 = train_1time(f1, f2, lidxs2, model_cfg, dcfg,
-                             seed=seed + 2 * i, device=device)
+                             seed=seed + 2 * i, device=device, mesh=mesh)
         probs1 = train_1time(f2, f1, lidxs1, model_cfg, dcfg,
-                             seed=seed + 2 * i + 1, device=device)
+                             seed=seed + 2 * i + 1, device=device, mesh=mesh)
         for idx, p in probs2.items():
             idx2probs_all[idx].append(p)
         for idx, p in probs1.items():
             idx2probs_all[idx].append(p)
-        os.remove(f1)
-        os.remove(f2)
+        run_on_lead(lambda: (os.remove(f1), os.remove(f2)), device=device)
     print("##########Train Cross Rank, finished!##########")
     sys.stdout.flush()
     return idx2probs_all
@@ -190,10 +197,11 @@ def _all_negative_samples(train_file: str) -> str:
 
 def denoise(train_file: str, model_cfg: Optional[ModelConfig] = None,
             dcfg: Optional[DenoiseConfig] = None, seed: int = 0,
-            device=None) -> str:
+            device=None, mesh=None) -> str:
     """The denoise driver (denoise.py:305-345); returns the path of the
     final denoised training file.  ``device=None`` trains on ``cuda`` and
-    raises without a GPU; pass ``device="cpu"`` for the CPU."""
+    raises without a GPU; pass ``device="cpu"`` for the CPU.  With
+    ``mesh`` every rank must call it (module docstring)."""
     total_start = time.time()
     device = resolve_device(device)
     dcfg = dcfg or DenoiseConfig()
@@ -204,38 +212,46 @@ def denoise(train_file: str, model_cfg: Optional[ModelConfig] = None,
     rng = random.Random(seed)
     np_rng = np.random.default_rng(seed)
     ori_train_file = train_file
-    train_neg_file = _all_negative_samples(train_file)
+    train_neg_file = run_on_lead(_all_negative_samples, train_file,
+                                 device=device)
 
     for iter_c in range(dcfg.iterations):
         print("\n###### cross rank to clean samples, Iter: {} ######"
               .format(iter_c + 1))
         idx2probs = train_rounds(train_file, str(iter_c + 1), model_cfg,
                                  dcfg, rng, seed=seed + 100 * iter_c,
-                                 device=device)
-        clean_pos, left_ratio = clean_samples(train_file, idx2probs,
-                                              dcfg.score_cf)
-        if train_file != ori_train_file:
-            os.remove(train_file)
-
-        print("\n#####concat denoised file#####")
-        pos_num = count_line_num(clean_pos)
-        fname, fext = os.path.splitext(train_neg_file)
-        seled_neg = fname + ".r" + str(pos_num) + fext
-        select_negsamples_asposkmer(clean_pos, train_neg_file, seled_neg,
-                                    rng=rng)
-
+                                 device=device, mesh=mesh)
         fname, fext = os.path.splitext(ori_train_file)
-        train_file = fname + ".denoise" + str(iter_c + 1) + fext
-        concat_two_files(clean_pos, seled_neg, concated_fp=train_file,
-                         rng=np_rng)
-        os.remove(seled_neg)
-        os.remove(clean_pos)
-        print("#####concat denoised file, finished!#####")
+        next_file = fname + ".denoise" + str(iter_c + 1) + fext
+
+        def write_next(train_file=train_file):
+            """Clean the positives and write the next training file;
+            returns the kept share of the positives."""
+            clean_pos, left_ratio = clean_samples(train_file, idx2probs,
+                                                  dcfg.score_cf)
+            if train_file != ori_train_file:
+                os.remove(train_file)
+
+            print("\n#####concat denoised file#####")
+            pos_num = count_line_num(clean_pos)
+            fname, fext = os.path.splitext(train_neg_file)
+            seled_neg = fname + ".r" + str(pos_num) + fext
+            select_negsamples_asposkmer(clean_pos, train_neg_file, seled_neg,
+                                        rng=rng)
+            concat_two_files(clean_pos, seled_neg, concated_fp=next_file,
+                             rng=np_rng)
+            os.remove(seled_neg)
+            os.remove(clean_pos)
+            print("#####concat denoised file, finished!#####")
+            return left_ratio
+
+        left_ratio = run_on_lead(write_next, device=device)
+        train_file = next_file
 
         if left_ratio > 0.99:
             break
 
-    os.remove(train_neg_file)
+    run_on_lead(os.remove, train_neg_file, device=device)
     print("###### denoised file for training: {}".format(train_file))
     print("###### denoise totally costs {:.2f} seconds"
           .format(time.time() - total_start))

@@ -20,8 +20,25 @@ Reference semantics (train_model.py:24-285) as the JAX package keeps them:
 
 The step's metrics (loss, counts, predictions) come back through pinned
 host buffers with non-blocking copies and are read one step late, so the
-host queues step i + 1 before it waits for step i.  The multi-device and
-multi-host branches of the JAX trainer are not ported.
+host queues step i + 1 before it waits for step i.
+
+On a mesh of ranks (``parallel/mesh.py``; one process per GPU) every rank
+sees the same global batch and trains on its contiguous block of it; a
+step computes what one process computes on the whole batch, as the JAX
+trainer's global mesh does:
+
+- the weights start alike on every rank (the same seed); with a model axis
+  each rank keeps its rows of fc1 (``DeepSignalNet.set_mesh``);
+- the loss is the global masked mean: each rank's sum over its rows over
+  the global batch's valid count (known on every rank), and the gradients
+  are summed over the data group in one all-reduce, which gives the
+  single-process gradient;
+- loss and counts are summed and predictions and probabilities gathered
+  over the data group, so every step method returns the global batch's
+  values on every rank;
+- ``train()`` writes logs, checkpoints and the train state from rank 0
+  only (every rank takes the same decisions from the same metrics); a
+  saved state dict holds the whole fc1, so both packages load it.
 """
 
 from __future__ import annotations
@@ -39,6 +56,9 @@ from ..core.config import ModelConfig, TrainConfig
 from ..core.device import resolve_device
 from ..models.deepsignal import (DeepSignalNet, predictions,
                                  weighted_ce_with_logits)
+from ..parallel.dist import barrier, rank_and_world
+from ..parallel.mesh import (TP_PARAM, all_gather_cat, all_reduce_sum_,
+                             gather_rows, local_block, shard_rows)
 from .checkpoints import (ckpt_name, clean_model_dir, clear_train_state,
                           load_train_state, save_checkpoint, save_train_state,
                           state_dict_to_variables, variables_to_state_dict)
@@ -50,21 +70,35 @@ VALID_LOG = "valid.txt"
 INPUTS = ("kmer", "means", "stds", "sanums", "signals")
 
 
-def masked_mean_loss(logits, labels, valid_mask, class_num: int,
-                     pos_weight: float):
-    """Reference cost (model.py:105-118) with padded rows masked out.
-
-    pos_weight == 1: elementwise weighted CE over the one-hot [B, C] grid,
-    mean over the valid elements.  Otherwise the scalar class-1-logit form."""
+def _masked_loss_terms(logits, labels, valid_mask, class_num: int,
+                       pos_weight: float):
+    """(sum of the masked per-element losses, the masked weights, the
+    elements per row) of the reference cost."""
     if pos_weight == 1.0:
         one_hot = F.one_hot(labels.long(), class_num).to(logits.dtype)
         loss = weighted_ce_with_logits(logits, one_hot, pos_weight)
         w = valid_mask[:, None].to(loss.dtype)
-        return torch.sum(loss * w) / (torch.sum(w) * class_num)
+        return torch.sum(loss * w), w, class_num
     loss = weighted_ce_with_logits(logits[:, 1], labels.to(logits.dtype),
                                    pos_weight)
     w = valid_mask.to(loss.dtype)
-    return torch.sum(loss * w) / torch.sum(w)
+    return torch.sum(loss * w), w, 1
+
+
+def masked_mean_loss(logits, labels, valid_mask, class_num: int,
+                     pos_weight: float, global_valid: Optional[int] = None):
+    """Reference cost (model.py:105-118) with padded rows masked out.
+
+    pos_weight == 1: elementwise weighted CE over the one-hot [B, C] grid,
+    mean over the valid elements.  Otherwise the scalar class-1-logit form.
+    With ``global_valid`` (a data rank's block of a global batch) the sum
+    over this block's rows is divided by the global batch's valid count:
+    the data ranks' terms sum to the global mean."""
+    total, w, per_row = _masked_loss_terms(logits, labels, valid_mask,
+                                           class_num, pos_weight)
+    if global_valid is not None:
+        return total / (global_valid * per_row)
+    return total / (torch.sum(w) * per_row)
 
 
 class StagedBatch(NamedTuple):
@@ -81,16 +115,24 @@ class Trainer:
     and the train and eval steps.
 
     ``train_cfg.seed`` gives both the initial weights (flax's initializers,
-    ``models.deepsignal.init_weights``) and the dropout generator's seed."""
+    ``models.deepsignal.init_weights``) and the dropout generator's seed,
+    alike on every rank of ``mesh`` (``parallel/mesh.py``; module
+    docstring)."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.mcfg = model_cfg
         self.tcfg = train_cfg
         init_seed, dropout_seed = (int(s) for s in np.random.SeedSequence(
             train_cfg.seed).generate_state(2))
         self.model = DeepSignalNet(model_cfg, seed=init_seed).to(self.device)
+        if mesh is not None:
+            self.model.set_mesh(mesh)
+        self._tp_index = ([n for n, _ in self.model.named_parameters()]
+                          .index(TP_PARAM)
+                          if mesh is not None and mesh.model > 1 else None)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(dropout_seed)
         self.optimizer = torch.optim.Adam(
@@ -128,14 +170,20 @@ class Trainer:
         return [t.numpy() for t in out]
 
     def stage_batch(self, batch) -> StagedBatch:
-        """Start the host-to-device copy of a ``data.Batch`` now.  Mapped
-        over the batches inside ``prefetch_batches``, it runs on the
-        prefetch thread, so the copy of batch i + 1 overlaps step i."""
+        """Start the host-to-device copy of a ``data.Batch`` now (on a
+        mesh, of this rank's block of it; ``valid`` stays the global
+        batch's).  Mapped over the batches inside ``prefetch_batches``, it
+        runs on the prefetch thread, so the copy of batch i + 1 overlaps
+        step i."""
         batch = dict(batch)
         n = batch["labels"].shape[0]
         valid = batch.pop("__valid__", n)
         mask = np.zeros(n, dtype=np.float32)
         mask[:valid] = 1.0
+        if self.mesh is not None:
+            data, rank = self.mesh.data, self.mesh.data_rank
+            batch, mask = local_block(batch, rank, data), \
+                local_block(mask, rank, data)
         return StagedBatch({k: self._to_device(v) for k, v in batch.items()},
                            self._to_device(mask), valid)
 
@@ -154,12 +202,49 @@ class Trainer:
                             keep_prob=self.tcfg.keep_prob,
                             generator=self.generator)
         loss = masked_mean_loss(logits, tensors["labels"], mask,
-                                self.mcfg.class_num, self.tcfg.pos_weight)
+                                self.mcfg.class_num, self.tcfg.pos_weight,
+                                None if self.mesh is None else valid)
         loss.backward()
+        if self.mesh is not None:
+            self._sum_gradients()
         self.optimizer.step()
         preds = predictions(logits.detach(), self.tcfg.pos_weight)
         counts = metric_counts(preds, tensors["labels"], mask)
-        return self._fetch(loss.detach(), counts, preds), valid
+        loss, counts, (preds,) = self._global(loss.detach(), counts, preds)
+        return self._fetch(loss, counts, preds), valid
+
+    def _sum_gradients(self) -> None:
+        """Sum every gradient over the data group, in one all-reduce.  With
+        a model axis the replicated gradients are summed over every rank
+        and divided by the model size: each model rank computed them from
+        the same rows, and their mean keeps the replicas identical where
+        the backward is not bitwise deterministic (cuDNN's weight
+        gradients, the embedding's index_add); fc1's rows are summed over
+        the data group."""
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        if self._tp_index is None:
+            _sum_flat(grads, self.mesh.data_group)
+            return
+        fc1 = self.model.get_parameter(TP_PARAM).grad
+        rest = [g for g in grads if g is not fc1]
+        _sum_flat(rest, self.mesh.group)
+        for g in rest:
+            g.div_(self.mesh.model)
+        all_reduce_sum_(fc1, self.mesh.data_group)
+
+    def _global(self, loss, counts, *rows):
+        """The global batch's loss and counts (summed over the data group)
+        and per-row results (gathered); unchanged without a mesh."""
+        if self.mesh is None:
+            return loss, counts, rows
+        packed = all_reduce_sum_(
+            torch.cat([loss.double().reshape(1), counts.double()]),
+            self.mesh.data_group)
+        stacked = gather_rows(torch.stack([r.double() for r in rows], 1),
+                              self.mesh)
+        return (packed[0].to(loss.dtype), packed[1:].to(counts.dtype),
+                [stacked[:, i].to(r.dtype) for i, r in enumerate(rows)])
 
     def resolve_metrics(self, handle):
         """(loss, counts, preds[:valid], valid) of a train-step handle."""
@@ -178,10 +263,13 @@ class Trainer:
         with torch.no_grad():
             logits = self.model(*(tensors[k] for k in INPUTS), train=False)
             loss = masked_mean_loss(logits, tensors["labels"], mask,
-                                    self.mcfg.class_num, self.tcfg.pos_weight)
+                                    self.mcfg.class_num, self.tcfg.pos_weight,
+                                    None if self.mesh is None else valid)
             probs1 = torch.sigmoid(logits[:, 1])
             preds = predictions(logits, self.tcfg.pos_weight)
             counts = metric_counts(preds, tensors["labels"], mask)
+            loss, counts, (preds, probs1) = self._global(loss, counts, preds,
+                                                         probs1)
         return self._fetch(loss, counts, preds, probs1), valid
 
     def resolve_eval(self, handle):
@@ -197,27 +285,42 @@ class Trainer:
 
     @property
     def variables(self) -> dict:
-        """Params and batch-norm statistics in flax's layout."""
-        return state_dict_to_variables(self.mcfg, self.model.state_dict())
+        """Params and batch-norm statistics in flax's layout, fc1 whole.
+        With a model axis it gathers fc1: every rank must read it."""
+        sd = self.model.state_dict()
+        if self._tp_index is not None:
+            sd[TP_PARAM] = all_gather_cat(sd[TP_PARAM], self.mesh.model_group)
+        return state_dict_to_variables(self.mcfg, sd)
 
     def train_state(self) -> dict:
         """Adam's state (per parameter index, as ``optimizer.state_dict``
-        numbers them) and the dropout generator's state, as numpy."""
+        numbers them; fc1's moments whole) and the dropout generator's
+        state, as numpy.  With a model axis every rank must call it."""
         opt = self.optimizer.state_dict()["state"]
-        return {"opt_state": {str(i): {k: v.detach().cpu().numpy()
-                                       for k, v in st.items()}
-                              for i, st in opt.items()},
-                "rng": self.generator.get_state().numpy()}
+        out = {}
+        for i, st in opt.items():
+            if i == self._tp_index:  # the moments; the step is a scalar
+                st = {k: all_gather_cat(v, self.mesh.model_group)
+                      if v.dim() else v for k, v in st.items()}
+            out[str(i)] = {k: v.detach().cpu().numpy() for k, v in st.items()}
+        return {"opt_state": out, "rng": self.generator.get_state().numpy()}
 
     def restore(self, variables, train_state) -> None:
-        """Restore params, batch-norm statistics, Adam and the generator."""
-        sd = variables_to_state_dict(self.mcfg, variables)
-        self.model.load_state_dict({k: torch.from_numpy(v)
-                                    for k, v in sd.items()})
+        """Restore params, batch-norm statistics, Adam and the generator
+        (on a mesh with a model axis, this rank's rows of fc1)."""
+        sd = {k: torch.from_numpy(v) for k, v in
+              variables_to_state_dict(self.mcfg, variables).items()}
+        if self._tp_index is not None:
+            sd[TP_PARAM] = shard_rows(sd[TP_PARAM], self.mesh)
+        self.model.load_state_dict(sd)
         opt = self.optimizer.state_dict()
-        opt["state"] = {int(i): {k: torch.from_numpy(np.array(v))
-                                 for k, v in st.items()}
-                        for i, st in train_state["opt_state"].items()}
+        opt["state"] = {}
+        for i, st in train_state["opt_state"].items():
+            st = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+            if int(i) == self._tp_index:
+                st = {k: shard_rows(v, self.mesh) if v.dim() else v
+                      for k, v in st.items()}
+            opt["state"][int(i)] = st
         self.optimizer.load_state_dict(opt)
         self.generator.set_state(torch.from_numpy(
             np.array(train_state["rng"])))
@@ -229,6 +332,16 @@ class Trainer:
         return self.tcfg.learning_rate * self.tcfg.decay_rate
 
 
+def _sum_flat(tensors: list, group) -> None:
+    """Sum ``tensors`` in place over ``group`` through one flat buffer."""
+    flat = all_reduce_sum_(torch.cat([t.reshape(-1) for t in tensors]),
+                           group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
 def _log_line(epoch_id, iid, loss, acc, rec, prec) -> str:
     return ("epoch:%d, iterid:%d, loss:%.3f, accuracy:%.3f, recall:%.3f, "
             "precision:%.3f\n" % (epoch_id, iid, loss, acc, rec, prec))
@@ -238,9 +351,11 @@ def train(train_file: str, valid_file: str, model_dir: str,
           log_dir: Optional[str], model_cfg: ModelConfig,
           train_cfg: TrainConfig, is_binary: bool = False,
           trainer: Optional[Trainer] = None, resume: bool = False,
-          device=None) -> dict:
+          device=None, mesh=None) -> dict:
     """The training loop with the reference's logging and checkpoint
-    semantics (module docstring).  ``device=None`` trains on ``cuda``.
+    semantics (module docstring).  ``device=None`` trains on ``cuda``, on a
+    mesh ``mesh`` of ranks when given (``parallel/mesh.py``); then every
+    rank must call it, and rank 0 alone writes files.
 
     ``resume=True`` continues from the rolling train-state checkpoint in
     ``model_dir`` (params, Adam, generator, shuffle stream, epoch counters)
@@ -250,8 +365,11 @@ def train(train_file: str, valid_file: str, model_dir: str,
     tcfg = train_cfg
     mcfg = model_cfg
     if trainer is None:
-        trainer = Trainer(mcfg, tcfg, device=device)
+        trainer = Trainer(mcfg, tcfg, device=device, mesh=mesh)
     shuffle_rng = np.random.default_rng(tcfg.seed)
+    # every rank reads the same metrics and so takes the same checkpoint
+    # and early-stop decisions; only rank 0 touches the files
+    is_lead = rank_and_world()[0] == 0
 
     start_epoch = 0
     test_accu_best = 0.0
@@ -269,7 +387,7 @@ def train(train_file: str, valid_file: str, model_dir: str,
         shuffle_rng.bit_generator.state = meta["shuffle_state"]
         print(f"resuming training from epoch {start_epoch} "
               f"(best accuracy so far: {test_accu_best:.3f})")
-    else:
+    elif is_lead:
         removed = clean_model_dir(model_dir, mcfg.kmer_len,
                                   mcfg.cent_signals_len)
         clear_train_state(model_dir)
@@ -291,7 +409,9 @@ def train(train_file: str, valid_file: str, model_dir: str,
     def save_best(epoch_id, meta):
         path = os.path.join(model_dir, ckpt_name(
             mcfg.kmer_len, mcfg.cent_signals_len, epoch_id))
-        save_checkpoint(path, mcfg, trainer.variables, meta=meta)
+        variables = trainer.variables  # a collective under tensor parallel
+        if is_lead:
+            save_checkpoint(path, mcfg, variables, meta=meta)
         return path
 
     for epoch_id in range(start_epoch, tcfg.max_epoch_num):
@@ -317,7 +437,7 @@ def train(train_file: str, valid_file: str, model_dir: str,
             tr_prec.append(prec)
             if iid % tcfg.display_step != 0:
                 return
-            if log_dir is not None:
+            if log_dir is not None and is_lead:
                 with open(os.path.join(log_dir, TRAIN_LOG), "a") as f:
                     f.write(_log_line(epoch_id, iid, np.mean(tr_loss),
                                       np.mean(tr_acc), np.mean(tr_rec),
@@ -325,7 +445,7 @@ def train(train_file: str, valid_file: str, model_dir: str,
             va_loss, va_acc, va_rec, va_prec = _validate(trainer, valid_ds,
                                                          tcfg, mcfg)
             sweeps_run += 1
-            if log_dir is not None:
+            if log_dir is not None and is_lead:
                 with open(os.path.join(log_dir, VALID_LOG), "a") as f:
                     f.write(_log_line(epoch_id, iid, va_loss, va_acc, va_rec,
                                       va_prec))
@@ -377,14 +497,19 @@ def train(train_file: str, valid_file: str, model_dir: str,
                          % (epoch_id, test_accu_best_ep, test_accu_best))
         sys.stdout.flush()
         if tcfg.save_state:
-            save_train_state(
-                model_dir, mcfg, trainer.variables, trainer.train_state(),
-                meta={"next_epoch": epoch_id + 1,
-                      "test_accu_best": test_accu_best,
-                      "best_path": best_path, "epochs_run": epochs_run,
-                      "shuffle_state": shuffle_rng.bit_generator.state})
+            variables, state = trainer.variables, trainer.train_state()
+            if is_lead:
+                save_train_state(
+                    model_dir, mcfg, variables, state,
+                    meta={"next_epoch": epoch_id + 1,
+                          "test_accu_best": test_accu_best,
+                          "best_path": best_path, "epochs_run": epochs_run,
+                          "shuffle_state": shuffle_rng.bit_generator.state})
         if not improved and epoch_id >= tcfg.min_epoch_num - 1:
             break
+    # every rank returns once rank 0's files are written
+    if trainer.mesh is not None:
+        barrier(trainer.device)
 
     sys.stdout.write("training finished, costs %.1f seconds..\n"
                      % (time.time() - train_start))

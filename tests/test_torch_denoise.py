@@ -189,9 +189,9 @@ def test_denoise_raises_without_cuda(tmp_path, monkeypatch):
 def test_cli_denoise_maps_the_jax_flags(tmp_path, monkeypatch):
     seen = {}
 
-    def fake_denoise(train_file, mcfg, dcfg, device=None):
+    def fake_denoise(train_file, mcfg, dcfg, device=None, mesh=None):
         seen.update(train_file=train_file, mcfg=mcfg, dcfg=dcfg,
-                    device=device)
+                    device=device, mesh=mesh)
         return train_file
 
     monkeypatch.setattr(denoise, "denoise", fake_denoise)
@@ -200,6 +200,8 @@ def test_cli_denoise_maps_the_jax_flags(tmp_path, monkeypatch):
                      "--keep_prob", "0.7", "--device", "cpu"]) == 0
     mcfg, dcfg = seen["mcfg"], seen["dcfg"]
     assert seen["device"] == "cpu" and seen["train_file"] == "t.tsv"
+    # without torchrun's environment no process group and no mesh
+    assert seen["mesh"] is None
     # --layer_num is parsed and not passed on, as in the JAX package
     assert (mcfg.kmer_len, mcfg.lstm_layers, mcfg.is_cnn, mcfg.is_base,
             mcfg.is_rnn) == (13, 3, False, False, True)

@@ -29,7 +29,8 @@ def test_port_modules_import_without_jax():
                  "featurize.extractor", "featurize.signal",
                  "featurize.central", "tools.frequency", "tools.combine",
                  "tools.evaluate", "tools.runner", "tools.vis",
-                 "models.tf1_import", "core.logging"):
+                 "models.tf1_import", "core.logging", "parallel.dist",
+                 "parallel.mesh"):
         assert f"deepsignal_tpu_torch.{name}" in modules
     # matplotlib is imported at the first plot only
     code = ("import sys\n"
@@ -89,6 +90,26 @@ def test_cli_module_does_not_import_torch():
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_host_only_subcommands_load_no_process_group_code(tmp_path):
+    """A host-only subcommand (call_freq) runs with torch importable and
+    leaves torch, and so torch.distributed, unloaded: only the model
+    subcommands make a process group."""
+    calls = tmp_path / "calls.tsv"
+    calls.write_text("chr1\t5\t+\t5\tr1\tt\t0.2\t0.8\t1\tAACGT\n"
+                     "chr1\t5\t+\t5\tr2\tt\t0.9\t0.1\t0\tAACGT\n")
+    code = ("import sys\n"
+            "from deepsignal_tpu_torch.cli.main import main\n"
+            f"assert main(['call_freq', '-i', {str(calls)!r}, '-o', "
+            f"{str(tmp_path / 'freq.tsv')!r}]) == 0\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == "
+            "'torch'))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert (tmp_path / "freq.tsv").stat().st_size > 0
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
