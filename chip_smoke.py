@@ -2244,8 +2244,6 @@ def torchrun(nproc: int, spec: dict, work: str, tag: str,
     """Run ``spec`` in ``nproc`` ranks under torchrun (a free local port),
     bounded by ``timeout``; the ranks' JSON results in rank order.  The
     ranks' output goes to ``<work>/<tag>.log``."""
-    import signal
-
     spec_path = os.path.join(work, f"{tag}.json")
     spec["out"] = spec_path + ".rank"
     with open(spec_path, "w") as f:
@@ -2266,8 +2264,7 @@ def torchrun(nproc: int, spec: dict, work: str, tag: str,
         try:
             rc = proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
+            stop_torchrun(proc)
             rc = "timeout"
     if rc != 0:
         with open(log, errors="replace") as f:
@@ -2277,6 +2274,25 @@ def torchrun(nproc: int, spec: dict, work: str, tag: str,
         with open(f"{spec['out']}{r}") as f:
             results.append(json.load(f))
     return results
+
+
+def stop_torchrun(proc) -> None:
+    """Stop a torchrun agent and its ranks.  The agent starts each rank in
+    a session of its own, so a signal to the agent's group misses them: a
+    SIGTERM makes the agent stop its ranks first, and SIGKILL follows for
+    whatever is left of its group."""
+    import signal
+
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:  # the group ended with the agent
+        pass
+    proc.wait()
 
 
 def recorded_train(spec: dict, mesh, steps: int) -> dict:

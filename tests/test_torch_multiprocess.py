@@ -272,8 +272,18 @@ def mp_run(tmp_path_factory):
     try:
         out = proc.communicate(timeout=WAIT_S)[0].decode(errors="replace")
     finally:
-        if proc.poll() is None:  # the agent and both ranks
-            os.killpg(proc.pid, signal.SIGKILL)
+        if proc.poll() is None:
+            # the agent stops its ranks (each in a session of its own) on
+            # SIGTERM; SIGKILL then ends whatever is left of its group
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:  # the group ended with the agent
+                pass
             proc.wait(timeout=10)
     assert proc.returncode == 0, f"torchrun failed:\n{out[-4000:]}"
     workers = [json.load(open(os.path.join(workdir, f"worker{r}.json")))
