@@ -88,6 +88,11 @@ bit on the call TSV, the native formatter against its plain version byte
 for byte on the calls, and both are timed beside their plain versions, with
 the background reader's start.
 
+With ``--cards N`` on a machine with N cards it runs only the multi-GPU
+paths, one rank per card under NCCL (``cards_main``): ``call_mods``
+through the CLI, the data- and fc1 tensor-parallel steps, and ``train``
+through the CLI at world size N and 1.
+
 Any failed check exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, it
 exits non-zero at once.  Scratch files go to ``build/chip_smoke/``.
@@ -2404,23 +2409,23 @@ def rank_cli(argvs: list) -> dict:
     return {"calls": calls, "steps": steps, **timing}
 
 
-def rank_gloo(spec: dict) -> dict:
-    """One of two ranks on one card over gloo: 3 data-parallel steps of
-    the global batch on ``make_mesh()``, then one step with fc1's rows
-    split over ``make_mesh(model_parallel=2)``."""
+def rank_steps(spec: dict) -> dict:
+    """One rank of the train steps in a ``spec["backend"]`` group: data-
+    parallel steps of the global batch on ``make_mesh()``, then one step
+    with fc1's rows split over ``make_mesh(model_parallel=2)``."""
     from deepsignal_tpu_torch.parallel.dist import distributed
     from deepsignal_tpu_torch.parallel.mesh import make_mesh
 
-    with distributed(spec["device"], backend="gloo") as (_rank, world):
-        check(world == 2, f"gloo: world size {world}")
+    with distributed(spec["device"], backend=spec["backend"]) as (_r, world):
+        check(world == spec["ranks"], f"steps: world size {world}")
         dp = recorded_train(spec, make_mesh(), spec["dp_steps"])
         tp = recorded_train(spec, make_mesh(model_parallel=2), 1)
-    return {"gloo": {"dp": dp, "tp": tp}}
+    return {"steps": {"dp": dp, "tp": tp}}
 
 
 def rank_worker(spec_path: str) -> None:
     """The body of one rank: the spec's CLI calls (``argvs``), then its
-    gloo steps (``gloo``), and its wall seconds, written to
+    train steps (``steps``), and its wall seconds, written to
     ``<spec["out"]><rank>``."""
     sys.path.insert(0, REPO)
 
@@ -2429,8 +2434,8 @@ def rank_worker(spec_path: str) -> None:
     rank = int(os.environ["RANK"])
     t0 = time.perf_counter()
     out = rank_cli(spec["argvs"]) if "argvs" in spec else {}
-    if "gloo" in spec:
-        out.update(rank_gloo(spec["gloo"]))
+    if "steps" in spec:
+        out.update(rank_steps(spec["steps"]))
     out.update(rank=rank, seconds=time.perf_counter() - t0)
     with open(f"{spec['out']}{rank}", "w") as f:
         json.dump(out, f)
@@ -2465,48 +2470,59 @@ def compare_calls(tag: str, got: list, want: list, dtype_name: str) -> dict:
             "labels_differ_near_margin": int(labels_differ.sum())}
 
 
-def run_two_ranks(tsv: str, ckpt: str, files: dict, work: str, card: str,
-                  device: str = "cuda:0") -> tuple:
-    """Two ranks on cuda:0 under torchrun: ``call_mods`` through the CLI in
-    bfloat16 and then float32 (each call makes and destroys the default
-    NCCL group, which makes no communicator, since inference issues no
-    collective), then the gloo steps of ``check_gloo`` in a gloo group.
-    Returns the results of ``check_call_shards`` and ``check_gloo``."""
+def run_ranks(tsv: str, ckpt: str, files: dict, work: str, card: str,
+              nproc: int = 2, device=None, backend: str = "nccl") -> tuple:
+    """``nproc`` ranks under torchrun: ``call_mods`` through the CLI in
+    bfloat16 and then float32, each call making and destroying the default
+    NCCL group (on a shared card it makes no communicator, since inference
+    issues no collective), then the train steps of ``check_steps`` in a
+    ``backend`` group.  ``device`` None puts rank k on cuda:k; "cuda:0"
+    puts every rank on the first card, where NCCL refuses two ranks and
+    the steps run over gloo.  Returns the results of ``check_call_shards``
+    and ``check_steps``."""
     dtypes = ("bfloat16", "float32")
-    outs = [os.path.join(work, f"calls_2ranks_{d}.tsv") for d in dtypes]
+    outs = [os.path.join(work, f"calls_{nproc}ranks_{d}.tsv")
+            for d in dtypes]
     argvs = [["call_mods", "-i", tsv, "-m", ckpt, "-o", out, "--batch_size",
               str(B), "--f5_batch_num", str(READS_PER_BATCH),
-              "--compute_dtype", d, "--device", device]
+              "--compute_dtype", d] + (["--device", device] if device else [])
              for d, out in zip(dtypes, outs)]
-    gloo = {"model": {}, "batch": TRAIN_B, "seed": 13, "device": device,
-            "train_bin": files["train_bin"], "dp_steps": 3, "lr": PARITY_LR}
+    steps = {"model": {}, "batch": TRAIN_B, "seed": 13, "device": device,
+             "backend": backend, "ranks": nproc,
+             "train_bin": files["train_bin"], "dp_steps": 3,
+             "lr": PARITY_LR}
     t0 = time.time()
-    ranks = torchrun(2, {"argvs": argvs, "gloo": gloo}, work, "two_ranks")
+    ranks = torchrun(nproc, {"argvs": argvs, "steps": steps}, work,
+                     f"{nproc}_ranks")
     wall = time.time() - t0
-    print(f"parallel: 2 ranks under torchrun: {wall:.1f} s wall, "
+    print(f"parallel: {nproc} ranks under torchrun: {wall:.1f} s wall, "
           f"{[round(r['seconds'], 1) for r in ranks]} s in the ranks | "
           f"{card}", flush=True)
     return (check_call_shards(ranks, dtypes, outs, work, card),
-            {**check_gloo(ranks, gloo, card), "torchrun_wall_s": wall})
+            {**check_steps(ranks, steps, card), "torchrun_wall_s": wall})
 
 
 def check_call_shards(ranks: list, dtypes: tuple, outs: list, work: str,
                       card: str) -> list:
-    """Each rank's part file holds its stride shard of the 10 read
-    batches, its K1 launches equal its device batches, and the merged rows
-    equal the single-process e2e run's."""
+    """Each rank's part file holds its stride shard of the read batches,
+    its K1 launches equal its device batches, and the merged rows equal
+    the single-process e2e run's."""
     from deepsignal_tpu_torch.parallel.dist import merge_call_shards
 
+    nproc = len(ranks)
+    read_batches = -(-(N_ROWS // SITES_PER_READ) // READS_PER_BATCH)
     results = []
     for c, (dtype_name, out) in enumerate(zip(dtypes, outs)):
         tag = f"parallel call_mods {dtype_name}"
         per_rank = []
         for r, res in enumerate(ranks):
-            with open(f"{out}.part{r}-of-2") as f:
+            with open(f"{out}.part{r}-of-{nproc}") as f:
                 n = sum(1 for _ in f)
+            want = len(range(r, read_batches, nproc)) * READS_PER_BATCH \
+                * SITES_PER_READ
             batches = -(-n // B)
             launches = res["calls"][c]["k1_launches"]
-            check(n == N_ROWS // 2, f"{tag}: rank {r} wrote {n} rows")
+            check(n == want, f"{tag}: rank {r} wrote {n} rows, want {want}")
             check(launches == batches, f"{tag}: rank {r} launched K1 "
                   f"{launches} times for {batches} device batches")
             per_rank.append({"rank": r, "rows": n, "device_batches": batches,
@@ -2514,7 +2530,7 @@ def check_call_shards(ranks: list, dtypes: tuple, outs: list, work: str,
                              "seconds": res["calls"][c]["seconds"]})
             print(f"{tag}: rank {r}: {n} rows, K1 {launches} launches, "
                   f"{res['calls'][c]['seconds']:.3f} s | {card}", flush=True)
-        merged = merge_call_shards(out, 2, remove_shards=True)
+        merged = merge_call_shards(out, nproc, remove_shards=True)
         cmp = compare_calls(tag, rows_of(merged),
                             rows_of(os.path.join(work,
                                                  f"calls_{dtype_name}.tsv")),
@@ -2579,10 +2595,11 @@ def run_sharded_reads(reads: list, ckpt: str, work: str) -> dict:
     return res
 
 
-def run_train_world1(files: dict, work: str, card: str,
-                     device: str = "cuda") -> dict:
-    """``train`` through the CLI under torchrun at world size 1, NCCL,
-    float32, WORLD1_STEPS steps at PARITY_LR: its per-step loss and counts
+def run_train_ranks(files: dict, work: str, card: str, nproc: int = 1,
+                    device: str = "cuda") -> dict:
+    """``train`` through the CLI under torchrun at world size ``nproc``,
+    NCCL (each rank on its own card), float32, WORLD1_STEPS steps at
+    PARITY_LR: its per-step loss and counts
     against the non-distributed ``train()`` on the same file and seed,
     within the spread of two non-distributed runs measured first (cuDNN's
     and the embedding's backward are not bitwise deterministic), with a
@@ -2615,16 +2632,17 @@ def run_train_world1(files: dict, work: str, card: str,
     if device != "cpu":
         torch.cuda.empty_cache()
 
-    model_dir = os.path.join(work, "model_world1")
+    model_dir = os.path.join(work, f"model_world{nproc}")
     argv = ["train", "--train_file", train_bin, "--valid_file",
             files["valid_bin"], "--is_binary", "yes", "--model_dir",
-            model_dir, "--log_dir", os.path.join(work, "logs_world1"),
+            model_dir, "--log_dir", os.path.join(work, f"logs_world{nproc}"),
             "--batch_size", str(TRAIN_B), "--learning_rate", str(PARITY_LR),
             "--keep_prob", "0.5", "--max_epoch_num", "1", "--min_epoch_num",
             "1", "--display_step", "2", "--seed", "11", "--device", device]
-    (rank0,) = torchrun(1, {"argvs": [argv]}, work, "train_world1")
-    tag = "parallel train world 1"
-    check(rank0["mesh"] == {"data": 1, "model": 1}
+    rank0 = torchrun(nproc, {"argvs": [argv]}, work,
+                     f"train_world{nproc}")[0]
+    tag = f"parallel train world {nproc}"
+    check(rank0["mesh"] == {"data": nproc, "model": 1}
           and rank0["device"] == ("cuda:0" if device == "cuda" else device),
           f"{tag}: mesh {rank0['mesh']} on {rank0['device']}")
     a, b = refs
@@ -2668,24 +2686,25 @@ def run_train_world1(files: dict, work: str, card: str,
     return res
 
 
-def check_gloo(ranks: list, spec: dict, card: str) -> dict:
-    """The two ranks' gloo steps on cuda:0 (NCCL refuses two ranks on one
-    card): 3 float32 data-parallel steps of the global batch TRAIN_B and
-    one fc1 tensor-parallel step, against the same steps in this process
-    without a mesh.  Counts exact and the same on both ranks, loss and a
-    float64 params checksum within STEP_TOL, every K2 launch resident at
-    the per-rank batch."""
+def check_steps(ranks: list, spec: dict, card: str) -> dict:
+    """The ranks' train steps: 3 float32 data-parallel steps of the global
+    batch TRAIN_B and one fc1 tensor-parallel step (model axis 2), against
+    the same steps in this process without a mesh.  Counts exact and the
+    same on every rank, loss and a float64 params checksum within
+    STEP_TOL, every K2 launch resident at the per-rank batch."""
     import torch
 
-    tag = "parallel gloo"
+    tag = f"parallel {spec['backend']}"
     res = {}
-    for part, steps in (("dp", spec["dp_steps"]), ("tp", 1)):
-        want = recorded_train(spec, None, steps)
+    for part, steps, data in (("dp", spec["dp_steps"], len(ranks)),
+                              ("tp", 1, len(ranks) // 2)):
+        want = recorded_train(dict(spec, device=spec["device"] or "cuda"),
+                              None, steps)
         if spec["device"] != "cpu":
             torch.cuda.empty_cache()
-        got = [r["gloo"][part] for r in ranks]
-        check(got[0]["steps"] == got[1]["steps"]
-              and got[0]["checksum"] == got[1]["checksum"],
+        got = [r["steps"][part] for r in ranks]
+        check(all(g["steps"] == got[0]["steps"]
+                  and g["checksum"] == got[0]["checksum"] for g in got),
               f"{tag} {part}: the ranks differ")
         for g, w in zip(got[0]["steps"], want["steps"]):
             check(g["counts"] == w["counts"], f"{tag} {part}: counts "
@@ -2698,7 +2717,7 @@ def check_gloo(ranks: list, spec: dict, card: str) -> dict:
         check(rel <= STEP_TOL["float32"], f"{tag} {part}: params checksum "
               f"{got[0]['checksum']} vs {want['checksum']}")
         for r in got:
-            check(r["local_batch"] == TRAIN_B // (2 if part == "dp" else 1)
+            check(r["local_batch"] == TRAIN_B // data
                   and r["k2_launches"] == 6 * steps == r["k2_resident"],
                   f"{tag} {part}: K2 {r['k2_launches']} launches, "
                   f"{r['k2_resident']} resident, at batch "
@@ -2717,6 +2736,7 @@ def check_gloo(ranks: list, spec: dict, card: str) -> dict:
               f"{card}", flush=True)
     print(f"{tag}: {json.dumps(res)}", flush=True)
     return res
+
 
 def main() -> None:
     import torch
@@ -2856,11 +2876,12 @@ def main() -> None:
     parity = {d: check_step_parity(d, device) for d in dtypes}
 
     t0 = time.time()
-    parallel["call_mods"], gloo = run_two_ranks(tsv, ckpt, files, work, card)
+    parallel["call_mods"], gloo = run_ranks(tsv, ckpt, files, work, card,
+                                            device="cuda:0", backend="gloo")
     parallel["gloo_2ranks"] = gloo
     for res in parallel["call_mods"]:
         launches["K1", res["dtype"]]["call_mods_2ranks"] = res["launches"]
-    world1 = parallel["train_world1"] = run_train_world1(files, work, card)
+    world1 = parallel["train_world1"] = run_train_ranks(files, work, card)
     launches["K1", "float32"]["train_world1"] = world1["k1_launches"]
     launches["K2", "float32"]["train_world1"] = world1["k2_launches"]
     launches["K1", "float32"]["train_world1_score"] = \
@@ -2894,8 +2915,69 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def cards_main(cards: int) -> None:
+    """``--cards N``: the multi-GPU paths with one rank per card on N
+    cards, under NCCL, at full width: ``call_mods`` through the CLI in
+    bfloat16 and float32 against the single-process run, the data- and
+    fc1 tensor-parallel steps against one process, and ``train`` through
+    the CLI at world size N and 1 against two non-distributed runs, with
+    their ms per step."""
+    import torch
+    if torch.cuda.device_count() < cards:
+        fail(f"{cards} cards asked for, {torch.cuda.device_count()} seen")
+    if not os.path.isdir(os.path.join(REPO, "deepsignal_tpu_torch")):
+        fail("run from the root of a deepsignal-tpu checkout")
+    sys.path.insert(0, REPO)
+    from deepsignal_tpu_torch.core.config import ModelConfig
+    from deepsignal_tpu_torch.io import native
+    from deepsignal_tpu_torch.io.feature_codec import convert_txt_to_binary
+    from deepsignal_tpu_torch.ops.cuda import build, lstm, lstm_scan
+    from deepsignal_tpu_torch.train.checkpoints import (
+        ckpt_name, save_checkpoint, state_dict_to_variables)
+
+    start = time.time()
+    card = card_line()
+    print(card, flush=True)
+    build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY,
+                           native.PARSER_LIBRARY, native.FORMATTER_LIBRARY,
+                           native.FEATURIZER_LIBRARY])
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    cfg = ModelConfig()
+    rng = np.random.default_rng(2024)
+    tsv = os.path.join(work, "features.tsv")
+    write_features(tsv, cfg, rng)
+    sd = random_state_dict(cfg, rng)
+    spread_logits(cfg, sd, tsv)
+    ckpt = save_checkpoint(
+        os.path.join(work, ckpt_name(cfg.kmer_len, cfg.cent_signals_len, 0)),
+        cfg, state_dict_to_variables(cfg, sd))
+    e2e = [run_e2e(d, tsv, ckpt, os.path.join(work, f"calls_{d}.tsv"))[0]
+           for d in ("bfloat16", "float32")]
+    files = {k: os.path.join(work, name) for k, name in (
+        ("train_tsv", "train.tsv"), ("valid_tsv", "valid.tsv"),
+        ("train_bin", "train.bin"), ("valid_bin", "valid.bin"))}
+    for part, n in (("train", TRAIN_ROWS), ("valid", VALID_ROWS)):
+        write_labelled_features(files[f"{part}_tsv"], n, cfg, rng)
+        check(convert_txt_to_binary(files[f"{part}_tsv"], files[f"{part}_bin"])
+              == n, f"{part}: binary records")
+    calls, steps = run_ranks(tsv, ckpt, files, work, card, nproc=cards)
+    trains = [run_train_ranks(files, work, card, nproc=n)
+              for n in (cards, 1)]
+    print(f"chip_smoke --cards {cards}: {time.time() - start:.1f} s",
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"e2e": e2e, "call_mods": calls, "steps": steps,
+                      "train": trains, "card": card}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--cards"]:
+        cards_main(int(sys.argv[2]))
     else:
         main()

@@ -202,10 +202,12 @@ def scan_on_product(xp, w_h, bias, reverse: bool, plan: dict):
     b, t, g = xp.shape
     out = torch.empty(b, t, g // 4, dtype=xp.dtype, device=xp.device)
     fn = _kernel_fn(plan["variant"], xp.dtype)
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    err = fn(xp.data_ptr(), w_h.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             b, t, g // 4, int(reverse), plan["rows"], plan["cluster"],
-             plan["smem_bytes"], stream)
+    # a launch must come from the device of the stream it goes to
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xp.data_ptr(), w_h.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), b, t, g // 4, int(reverse), plan["rows"],
+                 plan["cluster"], plan["smem_bytes"], stream)
     if err != 0:
         raise RuntimeError(f"lstm_scan {plan['variant']} kernel launch "
                            f"failed: cudaError {err}")

@@ -192,16 +192,22 @@ def test_host_shard_of_reads_is_a_stride_over_the_reads():
 
 
 def test_resolve_device_takes_the_local_rank(monkeypatch):
+    current = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
     monkeypatch.delenv("LOCAL_RANK", raising=False)
     assert resolve_device(None) == torch.device("cuda")
+    assert current == []
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("LOCAL_RANK", "1")
     for asked in (None, "cuda"):
         assert resolve_device(asked) == torch.device("cuda", 1)
+    # the rank's card becomes the current device (events, kernel streams)
+    assert current == [torch.device("cuda", 1)] * 2
     # an explicit card is kept: two ranks may share one
     assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert current[-1] == torch.device("cuda", 0)
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setenv("LOCAL_RANK", "2")
     with pytest.raises(RuntimeError, match="LOCAL_RANK 2 has no card"):
