@@ -162,16 +162,30 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # downstream round again at other places: a few 2**-8, with a margin.
 STEP_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # the parallel phase's steps against one process run at this learning
-# rate.  Adam's first step moves every weight by +-lr (a sign step), and
-# the batch-norm gradients are ill-conditioned: in float32 some are 2% off
-# their float64 values, so a reordered sum flips the step of some of them,
-# and the next loss moves in proportion to lr.  At TrainConfig's 1e-3 the
-# 6032-wide head makes step 2's loss 20-40 and two non-distributed runs on
-# an H100 read 2e-3 apart at step 2 and 7e-2 at step 9, which resolves no
-# fault; at 1e-5 two ranks read 5.7e-5 (relative) from one process at step
-# 2, too near STEP_TOL.  World size 1 trains WORLD1_STEPS steps of the
-# train set, a sweep every 2.
+# rate, which only the loss of step 2 and later feels (step 1's gradients
+# are held to GRAD_TOL below).  Adam's first step moves every weight by
+# +-lr (a sign step), and the batch-norm gradients are ill-conditioned: in
+# float32 some are 2% off their float64 values, so a reordered sum flips
+# the step of some of them, and the next loss moves in proportion to lr.
+# At TrainConfig's 1e-3 the 6032-wide head makes step 2's loss 20-40 and
+# two non-distributed runs on an H100 read 2e-3 apart at step 2 and 7e-2
+# at step 9, which resolves no fault; at 1e-5 two ranks read 5.7e-5
+# (relative) from one process at step 2, too near STEP_TOL.  World size 1
+# trains WORLD1_STEPS steps of the train set, a sweep every 2.
 PARITY_LR = 2e-6
+# the ranks' step 1 gradients against one process's, per parameter, the
+# relative difference of their 2-norms.  Step 1's gradients are taken at
+# the initial weights, so the learning rate does not reach them.  Batch
+# norm's gradients are ill-conditioned and the max-pools' ties break on
+# rounding, so a reordered sum moves some batch-norm parameter's gradient
+# norm by far more than a rounding.  check_steps prints its readings: on
+# an H100 80GB HBM3 at 700 W two one-process runs read 2.5e-8 apart, one
+# on signals moved by 1e-7 (relative) 4.8e-3, two gloo ranks 4.6e-3
+# (data-parallel) and 4.8e-7 (tensor-parallel).  The limit is 4x the
+# perturbed reading; a gradient summed over the ranks wrongly (a backward
+# left unsummed, a factor of the rank count) moves some norm by tens of
+# percent.
+GRAD_TOL = 2e-2
 WORLD1_STEPS = 4
 MARGIN = 1e-3           # label check skips sites with |p1 - p0| below this
 # a device batch's calls vs the plain encoder, max |dprob|: on an H100 80GB
@@ -1037,7 +1051,7 @@ def time_stages(tsv, ckpt, calls, native: dict) -> dict:
     from deepsignal_tpu_torch.io.feature_codec import (
         FeatureBatch, iter_feature_batches_by_read)
     from deepsignal_tpu_torch.models.deepsignal import model_from_state_dict
-    from deepsignal_tpu_torch.runtime.caller import _pad
+    from deepsignal_tpu_torch.parallel.mesh import pad_to_multiple
     from deepsignal_tpu_torch.train.checkpoints import (
         load_checkpoint, variables_to_state_dict)
 
@@ -1066,9 +1080,10 @@ def time_stages(tsv, ckpt, calls, native: dict) -> dict:
         stages["parse_plain_s"] = time.time() - t0
     batches = []
     for i in range(0, len(fb), B):
-        batches.append([torch.from_numpy(_pad(a[i:i + B], B)).cuda() for a in
-                        (fb.kmers, fb.means, fb.stds,
-                         fb.lens.astype(np.float32), fb.signals)])
+        batches.append([torch.from_numpy(pad_to_multiple(a[i:i + B], B)[0])
+                        .cuda() for a in (fb.kmers, fb.means, fb.stds,
+                                          fb.lens.astype(np.float32),
+                                          fb.signals)])
 
     def forward_all():
         with torch.inference_mode():
@@ -2086,6 +2101,18 @@ def profile_steps(step, steps: int = 3, top: int = 8) -> tuple:
     return device_ms, [[key, ms] for ms, key in per_op[:top]]
 
 
+def step_profile(trainer, staged) -> dict:
+    """Two train steps on ``staged`` traced (under the trainer's process
+    group, when it has one): ms per step of device time, of it in NCCL's
+    kernels and in the 8 kernels that take the most."""
+    device_ms, ops = profile_steps(
+        lambda: trainer.train_on_batch(staged, trainer.tcfg.learning_rate),
+        steps=2, top=None)
+    return {"device_ms": device_ms,
+            "nccl_ms": sum(ms for key, ms in ops if "nccl" in key.lower()),
+            "top_ops": ops[:8]}
+
+
 def step_ms(trainer, staged, reps: int = 10) -> float:
     """ms per train step on ``staged``: the host clock around synchronized
     steps, median of ``reps`` after 2 warm-up steps."""
@@ -2300,12 +2327,29 @@ def stop_torchrun(proc) -> None:
     proc.wait()
 
 
+def grad_norms(trainer) -> dict:
+    """The float64 2-norm of each parameter's gradient as the last step
+    left it, fc1's whole (every rank of a model axis must call it)."""
+    from deepsignal_tpu_torch.parallel.mesh import TP_PARAM, all_gather_cat
+
+    out = {}
+    for name, p in trainer.model.named_parameters():
+        g = p.grad
+        if name == TP_PARAM and trainer.mesh is not None \
+                and trainer.mesh.model > 1:
+            g = all_gather_cat(g, trainer.mesh.model_group)
+        out[name] = float(g.double().norm())
+    return out
+
+
 def recorded_train(spec: dict, mesh, steps: int) -> dict:
     """``steps`` train steps of the spec's model and global batches (the
     binary file in file order) through ``Trainer`` on ``mesh`` (None: one
-    process): per step the loss and counts, a float64 checksum of every
-    parameter (fc1 whole), the K2 launches by variant and the wall ms per
-    step (the host clock around synchronized steps)."""
+    process; ``spec["perturb"]`` moves step 1's signals by that relative
+    noise): per step the loss and counts, each parameter's gradient norm
+    after step 1, a float64 checksum of every parameter (fc1 whole), the
+    K2 launches by variant and the wall ms per step (the host clock around
+    synchronized steps)."""
     import torch
 
     from deepsignal_tpu_torch.core.config import ModelConfig, TrainConfig
@@ -2321,8 +2365,14 @@ def recorded_train(spec: dict, mesh, steps: int) -> dict:
     lstm_layer_scan.launches = 0
     lstm_layer_scan.launches_by_variant = {"resident": 0, "streaming": 0}
     out, times = [], []
-    for _ in range(steps):
+    for i in range(steps):
         batch = next(batches)
+        if i == 0 and spec.get("perturb"):
+            # the signals moved by about one float32 rounding
+            noise = np.random.default_rng(spec["seed"]).standard_normal(
+                batch["signals"].shape)
+            batch = dict(batch, signals=(batch["signals"] * (
+                1 + spec["perturb"] * noise)).astype(np.float32))
         t0 = time.perf_counter()
         loss, counts, _preds, _valid = trainer.train_on_batch(batch,
                                                               spec["lr"])
@@ -2330,6 +2380,8 @@ def recorded_train(spec: dict, mesh, steps: int) -> dict:
             torch.cuda.synchronize(trainer.device)
         times.append((time.perf_counter() - t0) * 1e3)
         out.append({"loss": loss, "counts": [int(c) for c in counts]})
+        if len(out) == 1:
+            norms = grad_norms(trainer)
 
     def leaves(tree):
         for v in tree.values():
@@ -2337,7 +2389,8 @@ def recorded_train(spec: dict, mesh, steps: int) -> dict:
 
     checksum = float(sum(np.asarray(a, dtype=np.float64).sum()
                          for a in leaves(trainer.variables["params"])))
-    return {"steps": out, "checksum": checksum, "ms_per_step": times,
+    return {"steps": out, "grad_norms": norms, "checksum": checksum,
+            "ms_per_step": times,
             "k2_launches": lstm_layer_scan.launches,
             "k2_resident": lstm_layer_scan.launches_by_variant["resident"],
             "local_batch": spec["batch"] // (1 if mesh is None else
@@ -2382,8 +2435,10 @@ def rank_cli(argvs: list) -> dict:
         n = len(steps)
         batch = next(open_dataset(args[0], True).batches(
             trainer.tcfg.batch_size))
-        timing["ms_per_step"] = step_ms(trainer, trainer.stage_batch(batch),
-                                        reps=5)
+        staged = trainer.stage_batch(batch)
+        timing["ms_per_step"] = step_ms(trainer, staged, reps=5)
+        if trainer.device.type == "cuda":
+            timing["profile"] = step_profile(trainer, staged)
         del steps[n:]
         timing["grad_bytes"] = 4 * sum(p.numel() for p in
                                        trainer.model.parameters())
@@ -2627,7 +2682,9 @@ def run_train_ranks(files: dict, work: str, card: str, nproc: int = 1,
               tcfg, is_binary=True, trainer=trainer)
         refs.append({"losses": trainer.losses, "counts": trainer.counts})
     batch = next(open_dataset(train_bin, True).batches(TRAIN_B))
-    ref_ms = step_ms(trainer, trainer.stage_batch(batch), reps=5)
+    staged = trainer.stage_batch(batch)
+    ref_ms = step_ms(trainer, staged, reps=5)
+    ref_profile = step_profile(trainer, staged) if device != "cpu" else None
     del trainer
     if device != "cpu":
         torch.cuda.empty_cache()
@@ -2673,39 +2730,81 @@ def run_train_ranks(files: dict, work: str, card: str, nproc: int = 1,
            "loss_max_diff_over_bound": worst,
            "ms_per_step": rank0["ms_per_step"],
            "ms_per_step_non_distributed": ref_ms,
+           "profile": rank0.get("profile"),
+           "profile_non_distributed": ref_profile,
            "grad_allreduce_mb": rank0["grad_bytes"] / 1e6,
            "k1_launches": rank0["calls"][0]["k1_launches"],
            "k2_launches": rank0["k2_launches"],
            "seconds": rank0["seconds"], "score": score,
            "loss": [st["loss"] for st in rank0["steps"]],
            "loss_non_distributed": refs[0]["losses"]}
+    prof = rank0.get("profile")
+    traced = "" if prof is None else (
+        f"; device {prof['device_ms']:.1f} ms a step, {prof['nccl_ms']:.1f} "
+        f"of it NCCL (non-distributed {ref_profile['device_ms']:.1f})")
     print(f"{tag}: {rank0['ms_per_step']:.1f} ms per step under NCCL "
-          f"(non-distributed {ref_ms:.1f}), all-reduce of "
-          f"{rank0['grad_bytes'] / 1e6:.1f} MB a step | {card}", flush=True)
+          f"(non-distributed {ref_ms:.1f}){traced}; a gradient of "
+          f"{rank0['grad_bytes'] / 1e6:.1f} MB "
+          f"{'summed over the ranks' if nproc > 1 else 'and no collective'}"
+          f" a step | {card}", flush=True)
     print(f"{tag}: {json.dumps(res)}", flush=True)
     return res
+
+
+def norms_apart(got: dict, want: dict) -> tuple:
+    """The largest relative difference of two runs' gradient norms over
+    the parameters, and the parameter where it is."""
+    check(got.keys() == want.keys(), "gradient norms of other parameters")
+    diffs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+             for k in want}
+    leaf = max(diffs, key=diffs.get)
+    return diffs[leaf], leaf
 
 
 def check_steps(ranks: list, spec: dict, card: str) -> dict:
     """The ranks' train steps: 3 float32 data-parallel steps of the global
     batch TRAIN_B and one fc1 tensor-parallel step (model axis 2), against
     the same steps in this process without a mesh.  Counts exact and the
-    same on every rank, loss and a float64 params checksum within
-    STEP_TOL, every K2 launch resident at the per-rank batch."""
+    same on every rank, each parameter's step 1 gradient norm within
+    GRAD_TOL, loss and a float64 params checksum within STEP_TOL, every K2
+    launch resident at the per-rank batch."""
     import torch
 
     tag = f"parallel {spec['backend']}"
-    res = {}
-    for part, steps, data in (("dp", spec["dp_steps"], len(ranks)),
-                              ("tp", 1, len(ranks) // 2)):
-        want = recorded_train(dict(spec, device=spec["device"] or "cuda"),
-                              None, steps)
+    parts = (("dp", spec["dp_steps"], len(ranks)), ("tp", 1, len(ranks) // 2))
+    wants = {}
+    for part, steps, perturb in (("dp", spec["dp_steps"], 0), ("tp", 1, 0),
+                                 ("noise", 1, 1e-7)):
+        wants[part] = recorded_train(
+            dict(spec, device=spec["device"] or "cuda", perturb=perturb),
+            None, steps)
         if spec["device"] != "cpu":
             torch.cuda.empty_cache()
+    # the readings GRAD_TOL is set from: step 1 of one process twice, and
+    # once more on signals moved by 1e-7 (relative)
+    spread, spread_leaf = norms_apart(wants["tp"]["grad_norms"],
+                                      wants["dp"]["grad_norms"])
+    noise, noise_leaf = norms_apart(wants["noise"]["grad_norms"],
+                                    wants["dp"]["grad_norms"])
+    print(f"{tag}: step 1 gradient norms of one process, largest relative "
+          f"difference of two runs {spread:.3e} ({spread_leaf}), on signals "
+          f"moved by 1e-7 {noise:.3e} ({noise_leaf}); GRAD_TOL {GRAD_TOL:g} "
+          f"| {card}", flush=True)
+    res = {"grad_norm_one_process_spread": spread,
+           "grad_norm_perturbed_1e-7": noise}
+    for part, steps, data in parts:
+        want = wants[part]
         got = [r["steps"][part] for r in ranks]
         check(all(g["steps"] == got[0]["steps"]
-                  and g["checksum"] == got[0]["checksum"] for g in got),
+                  and g["checksum"] == got[0]["checksum"]
+                  and g["grad_norms"] == got[0]["grad_norms"] for g in got),
               f"{tag} {part}: the ranks differ")
+        gdiff, gleaf = norms_apart(got[0]["grad_norms"], want["grad_norms"])
+        print(f"{tag} {part}: step 1 gradient norms against one process, "
+              f"largest relative difference {gdiff:.3e} ({gleaf}) | {card}",
+              flush=True)
+        check(gdiff <= GRAD_TOL, f"{tag} {part}: step 1 gradient of {gleaf} "
+              f"{gdiff:.3e} (relative) from one process's")
         for g, w in zip(got[0]["steps"], want["steps"]):
             check(g["counts"] == w["counts"], f"{tag} {part}: counts "
                   f"{g['counts']} vs {w['counts']}")
@@ -2723,6 +2822,7 @@ def check_steps(ranks: list, spec: dict, card: str) -> dict:
                   f"{r['k2_resident']} resident, at batch "
                   f"{r['local_batch']}")
         res[part] = {"steps": steps, "checksum_rel_diff": rel,
+                     "grad_norm_rel_diff": gdiff,
                      "loss": [s["loss"] for s in got[0]["steps"]],
                      "loss_one_process": [s["loss"] for s in want["steps"]],
                      "ms_per_step": [r["ms_per_step"] for r in got],

@@ -3,10 +3,10 @@
 Entry points run on ``cuda`` unless the caller asks for the CPU; with no
 GPU they raise rather than quietly run on the CPU.  Under torchrun (one
 process per GPU, ``parallel/dist.py``) ``cuda`` without an index is the
-rank's own card, ``cuda:{LOCAL_RANK}``; an explicit index is kept as
-given.  A device with an index becomes the process's current device, so
-that what is not placed by a tensor (CUDA events, the streams the
-kernels launch on) lands on it too.
+rank's own card, ``cuda:{LOCAL_RANK}``, which then becomes the process's
+current device (NCCL places its communicator there); an explicit index is
+kept as given and changes no process state: the kernels' wrappers and the
+CUDA events launch and record on their tensors' card.
 
 The float32 rule: on the card a float32 matrix product runs in full float32
 only while ``torch.backends.cuda.matmul.allow_tf32`` is False, and a float32
@@ -29,8 +29,8 @@ def resolve_device(device=None) -> torch.device:
 
     Under torchrun's ``LOCAL_RANK`` and ``WORLD_SIZE``, ``cuda`` without an
     index is ``cuda:{LOCAL_RANK}``, and a ``LOCAL_RANK`` past the card
-    count raises rather than wraps around.  A CUDA device with an index is
-    made the current device."""
+    count raises rather than wraps around, and the rank's card is made the
+    current device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -46,7 +46,6 @@ def resolve_device(device=None) -> torch.device:
                     f"{count}; launch at most {count} processes per node, "
                     f"or give each an explicit cuda:<index>")
             dev = torch.device("cuda", local)
-        if dev.index is not None:
             torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

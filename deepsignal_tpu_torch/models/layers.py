@@ -143,8 +143,9 @@ class TFBatchNorm(nn.Module):
     In training it normalizes with the batch's mean and biased variance
     over (B, L) and moves the float32 running statistics in place:
     ``stat = m * stat + (1 - m) * batch_stat`` with m and 1 - m the float32
-    values the JAX package uses.  On a mesh the batch statistics are the
-    global batch's, the same on every rank, and so are the running ones."""
+    values the JAX package uses.  On a mesh with more than one data rank
+    the batch statistics are the global batch's, the same on every rank,
+    and so are the running ones."""
 
     def __init__(self, features: int, epsilon: float = 1e-3,
                  momentum: float = 0.9):
@@ -171,7 +172,7 @@ class TFBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = x.dtype
         if train:
-            if self.mesh is None:
+            if self.mesh is None or self.mesh.data == 1:
                 mean = x.mean(dim=(0, 2))
                 var = torch.square(x - mean[:, None]).mean(dim=(0, 2))
             else:

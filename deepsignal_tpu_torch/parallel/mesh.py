@@ -239,8 +239,8 @@ class GatherColumns(torch.autograd.Function):
 
 def sum_over_data(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """Differentiable sum over the data group (the global batch's sum of a
-    per-block partial sum)."""
-    if mesh is None or mesh.data_group is None:
+    per-block partial sum); the identity on a data axis of one rank."""
+    if mesh is None or mesh.data == 1:
         return x
     return AllReduceSum.apply(x, mesh.data_group)
 

@@ -31,6 +31,7 @@ from ..io.calls_codec import count_read_runs, format_call_block
 from ..io.feature_codec import FeatureBatch
 from ..models.deepsignal import model_from_state_dict, predictions
 from ..parallel.dist import rank_and_world, shard_output_path
+from ..parallel.mesh import pad_to_multiple
 from ..train.checkpoints import load_checkpoint, variables_to_state_dict
 from .pipeline import (stream_fast5_feature_batches,
                        stream_file_feature_batches)
@@ -55,16 +56,6 @@ def compact_wire_arrays(kmer, means, stds, sanums, signals):
             np.ascontiguousarray(stds, dtype=np.float32),
             np.ascontiguousarray(counts.view(np.int16)),
             np.ascontiguousarray(signals, dtype=np.float32))
-
-
-def _pad(arr: np.ndarray, batch_size: int) -> np.ndarray:
-    """Pad the leading axis to the fixed batch size by repeating the last
-    row; the padded lanes are dropped by the valid count."""
-    n = arr.shape[0]
-    if n == batch_size:
-        return arr
-    reps = np.repeat(arr[-1:], batch_size - n, axis=0)
-    return np.concatenate([arr, reps], axis=0)
 
 
 class ModCaller:
@@ -115,7 +106,7 @@ class ModCaller:
         done = None
         if self._cuda:
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(self.device))
         return act, pred, done
 
     def dispatch_feature_batch(self, fb: FeatureBatch):
@@ -126,11 +117,8 @@ class ModCaller:
         pending = []
         for i in range(0, n, bs):
             j = min(i + bs, n)
-            out = self._run_fixed(_pad(fb.kmers[i:j], bs),
-                                  _pad(fb.means[i:j], bs),
-                                  _pad(fb.stds[i:j], bs),
-                                  _pad(fb.lens[i:j], bs),
-                                  _pad(fb.signals[i:j], bs))
+            out = self._run_fixed(*(pad_to_multiple(a[i:j], bs)[0] for a in (
+                fb.kmers, fb.means, fb.stds, fb.lens, fb.signals)))
             pending.append((i, j, out))
         return fb, pending
 

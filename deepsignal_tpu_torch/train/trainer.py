@@ -36,6 +36,8 @@ trainer's global mesh does:
 - loss and counts are summed and predictions and probabilities gathered
   over the data group, so every step method returns the global batch's
   values on every rank;
+- an axis of one rank issues no collective: a mesh of one rank trains
+  as one process does;
 - ``train()`` writes logs, checkpoints and the train state from rank 0
   only (every rank takes the same decisions from the same metrics); a
   saved state dict holds the whole fc1, so both packages load it.
@@ -58,7 +60,8 @@ from ..models.deepsignal import (DeepSignalNet, predictions,
                                  weighted_ce_with_logits)
 from ..parallel.dist import barrier, rank_and_world
 from ..parallel.mesh import (TP_PARAM, all_gather_cat, all_reduce_sum_,
-                             gather_rows, local_block, shard_rows)
+                             gather_rows, local_block, mesh_is_multiprocess,
+                             shard_rows)
 from .checkpoints import (ckpt_name, clean_model_dir, clear_train_state,
                           load_train_state, save_checkpoint, save_train_state,
                           state_dict_to_variables, variables_to_state_dict)
@@ -133,6 +136,10 @@ class Trainer:
         self._tp_index = ([n for n, _ in self.model.named_parameters()]
                           .index(TP_PARAM)
                           if mesh is not None and mesh.model > 1 else None)
+        # the collectives of an axis of one rank would sum a single term:
+        # a mesh of one rank trains as one process does
+        self._sync = mesh is not None and mesh_is_multiprocess(mesh)
+        self._data_sync = mesh is not None and mesh.data > 1
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(dropout_seed)
         self.optimizer = torch.optim.Adam(
@@ -159,7 +166,7 @@ class Trainer:
         done = None
         if self._cuda:
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(self.device))
         return out, done
 
     @staticmethod
@@ -203,9 +210,9 @@ class Trainer:
                             generator=self.generator)
         loss = masked_mean_loss(logits, tensors["labels"], mask,
                                 self.mcfg.class_num, self.tcfg.pos_weight,
-                                None if self.mesh is None else valid)
+                                valid if self._data_sync else None)
         loss.backward()
-        if self.mesh is not None:
+        if self._sync:
             self._sum_gradients()
         self.optimizer.step()
         preds = predictions(logits.detach(), self.tcfg.pos_weight)
@@ -220,7 +227,7 @@ class Trainer:
         the same rows, and their mean keeps the replicas identical where
         the backward is not bitwise deterministic (cuDNN's weight
         gradients, the embedding's index_add); fc1's rows are summed over
-        the data group."""
+        the data group when it has more than one rank."""
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
         if self._tp_index is None:
@@ -231,12 +238,14 @@ class Trainer:
         _sum_flat(rest, self.mesh.group)
         for g in rest:
             g.div_(self.mesh.model)
-        all_reduce_sum_(fc1, self.mesh.data_group)
+        if self._data_sync:
+            all_reduce_sum_(fc1, self.mesh.data_group)
 
     def _global(self, loss, counts, *rows):
         """The global batch's loss and counts (summed over the data group)
-        and per-row results (gathered); unchanged without a mesh."""
-        if self.mesh is None:
+        and per-row results (gathered); unchanged without a data axis of
+        more than one rank."""
+        if not self._data_sync:
             return loss, counts, rows
         packed = all_reduce_sum_(
             torch.cat([loss.double().reshape(1), counts.double()]),
@@ -264,7 +273,7 @@ class Trainer:
             logits = self.model(*(tensors[k] for k in INPUTS), train=False)
             loss = masked_mean_loss(logits, tensors["labels"], mask,
                                     self.mcfg.class_num, self.tcfg.pos_weight,
-                                    None if self.mesh is None else valid)
+                                    valid if self._data_sync else None)
             probs1 = torch.sigmoid(logits[:, 1])
             preds = predictions(logits, self.tcfg.pos_weight)
             counts = metric_counts(preds, tensors["labels"], mask)

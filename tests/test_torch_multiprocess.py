@@ -11,15 +11,19 @@ the process group with ``init_distributed`` and then run:
 - 3 data-parallel train steps of a global batch of 16, the last one a padded
   tail, at keep_prob 0.5, on ``make_mesh()``;
 - one fc1-tensor-parallel step on ``make_mesh(model_parallel=2)``;
+- at keep_prob 1.0 from the JAX package's initial weights: the same 3
+  data-parallel steps, one data-parallel step of the padded tail alone (on
+  2 ranks one block holds no real row) and one tensor-parallel step;
 - ``train()`` on the data-parallel mesh, counting each rank's file writes;
 - ``denoise()`` of the RNN-only tiny model on the mesh, counting each
   rank's calls of the functions that write its files.
 
-Each rank writes its numbers to ``worker<rank>.json``; the tests compare
-them with the same work done here in one process (the JAX package's own
-2-process test, ``tests/test_multiprocess.py``, allows the same
-tolerances).  ``tests/test_torch_train.py`` holds one process of the port
-against the JAX train step, which closes the chain to the JAX package.
+Each rank writes its numbers to ``worker<rank>.json`` (and the keep_prob
+1.0 steps' gradients and weights to ``jax_legs<rank>.npz``); the tests
+compare them with the same work done here in one process of the port (the
+JAX package's own 2-process test, ``tests/test_multiprocess.py``, allows
+the same tolerances) and, for the keep_prob 1.0 steps, with the JAX
+package's ``Trainer`` on the same global batches.
 """
 
 import json
@@ -49,6 +53,15 @@ SEED = 7
 PROB_TOL_RANKS = 3e-7          # the JAX package's 2-process tolerance
 PROB_TOL_GOLDEN = 1e-5         # tests/test_torch_caller.py's PROB_TOL
 REL = 1e-5
+LR = 1e-3
+# the port's step against the JAX step, float32 on the CPU both sides: the
+# gradients and the batch-norm statistics within tests/test_torch_train.py's
+# TOL (absolute); the weights that Adam moved by its first step within the
+# bounds that test derives (1e-6 where |g| > 1e-4, else 2 lr)
+JAX_TOL = 1e-5
+# the keep_prob 1.0 legs: (name, model_parallel, the batches stepped on, in
+# file order); the gradients and weights are those of the first step
+JAX_LEGS = (("dp", 1, (0, 1, 2)), ("tail", 1, (2,)), ("tp", 2, (0,)))
 WAIT_S = 300                   # each worker takes seconds here
 
 
@@ -119,29 +132,86 @@ def _call(input_path, ckpt, out):
                          compute_dtype="float32", device="cpu")
 
 
-def _trainer(mesh=None):
+def _trainer(mesh=None, keep_prob=0.5):
     from deepsignal_tpu_torch.core.config import ModelConfig, TrainConfig
     from deepsignal_tpu_torch.train.trainer import Trainer
     return Trainer(ModelConfig(**TRAIN_TINY),
-                   TrainConfig(batch_size=BATCH, keep_prob=0.5, seed=SEED),
+                   TrainConfig(batch_size=BATCH, keep_prob=keep_prob,
+                               seed=SEED),
                    device="cpu", mesh=mesh)
 
 
-def _train_steps(trainer, train_file, steps=STEPS):
+def _train_steps(trainer, train_file, steps=STEPS, batch_ids=None,
+                 after_first=None):
     """The step sequence every run takes: ``steps`` batches of the binary
-    file in file order; per step the loss, the counts and the
-    predictions."""
+    file in file order (or the batches ``batch_ids`` of that order); per
+    step the loss, the counts and the predictions.  ``after_first`` is
+    called after the first step."""
     from deepsignal_tpu_torch.train.data import open_dataset
     ds = open_dataset(train_file, True, TRAIN_TINY["kmer_len"],
                       TRAIN_TINY["cent_signals_len"])
+    batch_ids = range(steps) if batch_ids is None else batch_ids
     out = []
     for i, batch in enumerate(ds.batches(BATCH)):
-        loss, counts, preds, valid = trainer.train_on_batch(batch, 1e-3)
+        if i not in batch_ids:
+            continue
+        loss, counts, preds, valid = trainer.train_on_batch(batch, LR)
         out.append({"loss": loss, "counts": [int(c) for c in counts],
                     "preds": preds.tolist(), "valid": valid})
-        if i + 1 >= steps:
+        if len(out) == 1 and after_first is not None:
+            after_first()
+        if len(out) == len(batch_ids):
             break
     return out
+
+
+def _whole_state(trainer) -> dict:
+    """The gradients (``grad/<name>``) and the state dict (``sd/<name>``)
+    of the port's model, fc1 whole (every rank must call it)."""
+    from deepsignal_tpu_torch.parallel.mesh import TP_PARAM, all_gather_cat
+    tp = trainer.mesh is not None and trainer.mesh.model > 1
+    out = {}
+    for name, p in trainer.model.named_parameters():
+        g = p.grad
+        if tp and name == TP_PARAM:
+            g = all_gather_cat(g, trainer.mesh.model_group)
+        out[f"grad/{name}"] = g.numpy().copy()
+    sd = trainer.model.state_dict()
+    if tp:
+        sd[TP_PARAM] = all_gather_cat(sd[TP_PARAM], trainer.mesh.model_group)
+    out.update({f"sd/{k}": v.numpy().copy() for k, v in sd.items()})
+    return out
+
+
+def _jax_trainer():
+    from deepsignal_tpu.core.config import ModelConfig as JaxModelConfig
+    from deepsignal_tpu.core.config import TrainConfig as JaxTrainConfig
+    from deepsignal_tpu.train.trainer import Trainer as JaxTrainer
+    return JaxTrainer(JaxModelConfig(**TRAIN_TINY),
+                      JaxTrainConfig(batch_size=BATCH, keep_prob=1.0,
+                                     seed=SEED))
+
+
+def _jax_legs_worker(workdir: str, make_mesh) -> tuple:
+    """The keep_prob 1.0 legs (``JAX_LEGS``), each from the JAX package's
+    initial weights (``jax_init.npz``): per leg its steps, and the
+    gradients and state after its first step."""
+    from deepsignal_tpu_torch.parallel.mesh import TP_PARAM, shard_rows
+    init = {k: torch.from_numpy(v) for k, v in
+            np.load(os.path.join(workdir, "jax_init.npz")).items()}
+    steps, arrays = {}, {}
+    for name, model_parallel, batch_ids in JAX_LEGS:
+        trainer = _trainer(make_mesh(model_parallel=model_parallel), 1.0)
+        sd = dict(init)
+        if model_parallel > 1:
+            sd[TP_PARAM] = shard_rows(sd[TP_PARAM], trainer.mesh)
+        trainer.model.load_state_dict(sd)
+        first = {}
+        steps[name] = _train_steps(
+            trainer, os.path.join(workdir, "train.bin"), batch_ids=batch_ids,
+            after_first=lambda t=trainer: first.update(_whole_state(t)))
+        arrays.update({f"{name}/{k}": v for k, v in first.items()})
+    return steps, arrays
 
 
 def _sums(trainer) -> dict:
@@ -203,6 +273,8 @@ def _worker_main(workdir: str) -> None:
         resumed.restore(tp.variables, tp.train_state())
         out["tp"]["resume"] = [_train_steps(t, train_bin, 2)[1]
                                for t in (tp, resumed)]
+        out["jax_legs"], arrays = _jax_legs_worker(workdir, make_mesh)
+        np.savez(os.path.join(workdir, f"jax_legs{rank}.npz"), **arrays)
 
         writes = {"save_checkpoint": 0, "save_train_state": 0, "open": 0}
 
@@ -249,7 +321,7 @@ def _worker_main(workdir: str) -> None:
 def mp_run(tmp_path_factory):
     """Write the shared inputs, run both ranks, return the workdir."""
     from deepsignal_tpu_torch.train.checkpoints import (
-        save_checkpoint, state_dict_to_variables)
+        save_checkpoint, state_dict_to_variables, variables_to_state_dict)
     rng = np.random.default_rng(SEED)
     workdir = str(tmp_path_factory.mktemp("mp"))
     _make_fast5_dir(os.path.join(workdir, "f5"), rng)
@@ -261,6 +333,10 @@ def mp_run(tmp_path_factory):
     save_checkpoint(os.path.join(workdir, "ckpt"), tt.tiny_cfg(),
                     state_dict_to_variables(tt.tiny_cfg(),
                                             tt.tiny_state_dict()))
+    import jax
+    from deepsignal_tpu_torch.core.config import ModelConfig
+    np.savez(os.path.join(workdir, "jax_init.npz"), **variables_to_state_dict(
+        ModelConfig(**TRAIN_TINY), jax.device_get(_jax_trainer().variables)))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([REPO, TESTS,
                                          env.get("PYTHONPATH", "")])
@@ -377,6 +453,103 @@ def test_tensor_parallel_step_matches_one_process(mp_run):
     want = _train_steps(one, os.path.join(workdir, "train.bin"), 1)
     _assert_steps_match(w0["tp"]["steps"], want)
     _assert_sums_match(w0["tp"], _sums(one))
+
+
+@pytest.fixture(scope="module")
+def jax_steps(mp_run):
+    """The JAX package's ``Trainer`` on each leg of ``JAX_LEGS``, from its
+    initial weights, on the same global batches: per leg its steps, and
+    the gradients (``jax.grad`` of the train step's loss at the weights
+    before the first step) and the state after the first step, in the
+    port's names and layout."""
+    import jax
+    import jax.numpy as jnp
+    from deepsignal_tpu.train.data import open_dataset as jax_open_dataset
+    from deepsignal_tpu.train.trainer import \
+        masked_mean_loss as jax_masked_loss
+    from deepsignal_tpu_torch.core.config import ModelConfig
+    from deepsignal_tpu_torch.train.checkpoints import variables_to_state_dict
+    from deepsignal_tpu_torch.train.trainer import INPUTS
+    workdir = mp_run[0]
+    cfg = ModelConfig(**TRAIN_TINY)
+    batches = list(jax_open_dataset(
+        os.path.join(workdir, "train.bin"), True, TRAIN_TINY["kmer_len"],
+        TRAIN_TINY["cent_signals_len"]).batches(BATCH))
+    jt = _jax_trainer()
+    init = jax.device_get(jt.variables)
+
+    def loss_fn(params, batch_stats, inputs, labels, mask):
+        logits, _ = jt.model.apply(
+            {"params": params, "batch_stats": batch_stats}, *inputs,
+            train=True, keep_prob=1.0, mutable=["batch_stats"])
+        return jax_masked_loss(logits, labels, mask, cfg.class_num, 1.0)
+
+    grad_fn = jax.jit(jax.grad(loss_fn))
+    out = {}
+    for name, _model_parallel, batch_ids in JAX_LEGS:
+        jt.restore(init, jt.tx.init(init["params"]), jt.rng)
+        steps, first = [], None
+        for i in batch_ids:
+            batch = batches[i]
+            if first is None:
+                mask = (np.arange(BATCH) < batch["__valid__"]).astype(
+                    np.float32)
+                grads = jax.device_get(grad_fn(
+                    jt.params, jt.batch_stats,
+                    [jnp.asarray(batch[k]) for k in INPUTS],
+                    jnp.asarray(batch["labels"]), jnp.asarray(mask)))
+            loss, counts, preds, valid = jt.train_on_batch(dict(batch), LR)
+            steps.append({"loss": loss, "counts": [int(c) for c in counts],
+                          "preds": preds.tolist(), "valid": valid})
+            if first is None:
+                sd = variables_to_state_dict(cfg, jax.device_get(
+                    jt.variables))
+                first = {f"sd/{k}": v for k, v in sd.items()}
+                first.update({f"grad/{k}": v for k, v in
+                              variables_to_state_dict(cfg, {
+                                  "params": grads,
+                                  "batch_stats": init["batch_stats"]}).items()
+                              if not k.endswith((".mean", ".var"))})
+        out[name] = (steps, first)
+    return out
+
+
+@pytest.mark.parametrize("leg", [name for name, _, _ in JAX_LEGS])
+def test_two_rank_steps_match_the_jax_trainer(mp_run, jax_steps, leg):
+    """At keep_prob 1.0, from the JAX package's initial weights, the two
+    ranks' steps of the global batch equal the JAX ``Trainer``'s steps on
+    that batch: every step's counts and predictions exact and loss within
+    rel 1e-5; after the first step every gradient and batch-norm statistic
+    within JAX_TOL, and the weights Adam moved within its first step's
+    bounds.  Legs: the 3 data-parallel steps, the padded tail alone (rank
+    1's block holds no real row) and a fc1-tensor-parallel step."""
+    workdir, (w0, w1), _ = mp_run
+    assert w0["jax_legs"][leg] == w1["jax_legs"][leg]
+    want_steps, want = jax_steps[leg]
+    got_steps = w0["jax_legs"][leg]
+    assert len(got_steps) == len(want_steps)
+    for g, w in zip(got_steps, want_steps):
+        assert g["counts"] == w["counts"] and g["valid"] == w["valid"]
+        assert g["preds"] == w["preds"]
+        assert g["loss"] == pytest.approx(w["loss"], rel=REL)
+    if leg == "tail":
+        assert got_steps[0]["valid"] == BATCH // 2
+    ranks = [np.load(os.path.join(workdir, f"jax_legs{r}.npz"))
+             for r in (0, 1)]
+    got = {k[len(leg) + 1:]: ranks[0][k] for k in ranks[0].files
+           if k.startswith(f"{leg}/")}
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], ranks[1][f"{leg}/{k}"])
+    for k, w in want.items():
+        if k.startswith("grad/") or k.endswith((".mean", ".var")):
+            np.testing.assert_allclose(got[k], w, rtol=0, atol=JAX_TOL,
+                                       err_msg=k)
+            continue
+        g = np.abs(want[f"grad/{k[3:]}"])
+        diff = np.abs(got[k] - w)
+        assert diff[g > 1e-4].max(initial=0) <= 1e-6, k
+        assert diff.max() <= 2 * LR * (1 + 1e-6), k
 
 
 def test_two_rank_train_writes_from_rank_zero_only(mp_run):
