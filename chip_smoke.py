@@ -35,7 +35,7 @@ per-layer kernel.  Then it drives the main paths at full width:
   step must be of the resident variant.  One train step through the
   kernels is held against the same step through the plain versions;
 - ``call_mods`` from reads: 120 seeded in-memory tombo-resquiggled reads
-  (no h5py, no file) are featurized by the native featurizer, which is
+  are featurized by the native featurizer, which is
   first held against its plain version byte for byte on 8 of them and on
   the golden fixture's reads (``tests/golden/features_golden.tsv``); then
   ``run_extract``'s seam writes their feature TSV with 3 extract workers,
@@ -43,9 +43,13 @@ per-layer kernel.  Then it drives the main paths at full width:
   ``stream_fast5_feature_batches`` calls every site in bfloat16 and in
   float32, K1 launched once per device batch, the first batch held against
   the plain encoder, each run once more under ``torch.profiler`` for the
-  device's idle share.  ``run_call_mods`` on a fast5 directory raises the
-  ImportError that names h5py where h5py is missing, and calls 20
-  synthetic files where it is present;
+  device's idle share.  Then the same 120 reads as fast5 files, written
+  and read by the port's own HDF5 code (``io/hdf5.py``, no h5py): ``extract
+  -i <dir>`` through the CLI writes the in-memory reads' feature TSV, and
+  ``call_mods -i <dir>`` through the CLI gives the in-memory reads' calls
+  row for row in bfloat16 and in float32, K1 launched once per device
+  batch; the committed fixtures (``tests/fixtures/fast5``) read as the JAX
+  package's reader read them, and the reader's µs per file is timed;
 - TF1 import: the published model's name space
   (``tests/fixtures/tf1_variables_bn17_sn360.json``) with seeded values and
   the Adam slots and bookkeeping of a ``tf.train.Saver`` checkpoint, as
@@ -122,14 +126,14 @@ READS_PER_BATCH = 50    # run_call_mods's f5_batch_num: 10 read batches
 # the reads path: 120 in-memory reads of 8,000 bases (about 500 CpG sites
 # each, 60,000 in all, 15 device batches); 8 reads a worker batch, 3
 # workers (nproc 4); the native featurizer held against its plain version
-# on 8 reads; the fast5 entry point on 20 files where h5py is present
+# on 8 reads; the same reads as fast5 files through the port's reader
 N_READS = 120
 READ_BASES = 8000
 READS_PER_WORKER_BATCH = 8
 EXTRACT_NPROC = 4
 FEATURIZE_READS = 8
-FAST5_FILES = 20
-READS_SEED, FAST5_SEED = 606, 607
+READS_SEED = 606
+FAST5_FIXTURES = ("synthetic", "tombo_like", "latest", "no_alignment")
 # the TF1 phase: the published name space (581 variables) with seeded
 # values; evaluate's shuffle
 TF1_VARIABLES = 581
@@ -1449,48 +1453,173 @@ def run_e2e_reads(dtype_name: str, reads: list, ckpt: str, work: str,
     return res
 
 
-def check_fast5_entry(ckpt: str, work: str) -> dict:
-    """``run_call_mods`` on a fast5 directory: where h5py is missing it
-    raises the ImportError that names h5py; where h5py is present it calls
-    every site of ``FAST5_FILES`` files written by
-    ``write_synthetic_fast5``."""
+def same_read(got, want) -> bool:
+    """Two ``ResquiggledRead``s field for field: types, dtypes, values."""
+    import dataclasses
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if type(a) is not type(b) or not np.array_equal(a, b) or \
+                getattr(a, "dtype", None) != getattr(b, "dtype", None):
+            return False
+    return True
+
+
+def check_fast5_fixtures() -> dict:
+    """Each committed fixture of tests/fixtures/fast5 (written by h5py: the
+    JAX package's writer's layout, a MinKNOW- and tombo-like file, the
+    latest file format, a file with no Alignment) read by the port's
+    ``read_resquiggled_fast5`` as the JAX package's reader read it
+    (expected.npz), field for field."""
+    import dataclasses
+
+    from deepsignal_tpu_torch.io.fast5 import read_resquiggled_fast5
+
+    where = os.path.join(REPO, "tests", "fixtures", "fast5")
+    expected = np.load(os.path.join(where, "expected.npz"))
+    names = sorted({k.split(".")[0] for k in expected.files})
+    check(names == sorted(FAST5_FIXTURES), f"fast5 fixtures: {names}")
+    for name in names:
+        read = read_resquiggled_fast5(os.path.join(where, f"{name}.fast5"))
+        if f"{name}.none" in expected.files:
+            check(read is None, f"fast5 fixture {name}: a read where the "
+                  "JAX reader found none")
+            continue
+        for f in dataclasses.fields(read):
+            got, want = np.asarray(getattr(read, f.name)), \
+                expected[f"{name}.{f.name}"]
+            check(got.dtype == want.dtype and np.array_equal(got, want),
+                  f"fast5 fixture {name}: {f.name} differs")
+    return {"fixtures": names}
+
+
+# the reader's time per file in a fresh process, as an extract worker reads:
+# 3 passes over the files, each with its wall and CPU time, then the files'
+# bytes alone (open().read())
+READER_TIMING = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from deepsignal_tpu_torch.io.fast5 import read_resquiggled_fast5
+paths = sys.argv[2:]
+out = {"reader": [], "reader_cpu": [], "open_read": []}
+for _ in range(3):
+    t0, c0 = time.perf_counter(), time.process_time()
+    for p in paths:
+        read_resquiggled_fast5(p)
+    out["reader"].append((time.perf_counter() - t0) / len(paths) * 1e6)
+    out["reader_cpu"].append((time.process_time() - c0) / len(paths) * 1e6)
+    t0 = time.perf_counter()
+    for p in paths:
+        with open(p, "rb") as f:
+            f.read()
+    out["open_read"].append((time.perf_counter() - t0) / len(paths) * 1e6)
+print(json.dumps(out))
+"""
+
+
+def time_reader(paths: list) -> dict:
+    """µs per file of ``read_resquiggled_fast5`` on the card's host, median
+    of 3 passes over ``paths``: in a fresh process (what an extract worker
+    pays; with its CPU time and the bytes' read alone), and in this
+    process, which holds the earlier phases' objects and threads."""
+    from deepsignal_tpu_torch.io.fast5 import read_resquiggled_fast5
+
+    done = subprocess.run([sys.executable, "-c", READER_TIMING, REPO] + paths,
+                          capture_output=True, text=True, timeout=600)
+    check(done.returncode == 0, "fast5: the reader's timing process: "
+          + done.stderr[-500:])
+    fresh = json.loads(done.stdout.splitlines()[-1])
+    here = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for path in paths:
+            read_resquiggled_fast5(path)
+        here.append((time.perf_counter() - t0) / len(paths) * 1e6)
+    return {"reader_us_per_file": float(np.median(fresh["reader"])),
+            "reader_cpu_us_per_file": float(np.median(fresh["reader_cpu"])),
+            "open_read_us_per_file": float(np.median(fresh["open_read"])),
+            "reader_us_per_file_passes": fresh["reader"],
+            "reader_us_per_file_in_this_process": float(np.median(here))}
+
+
+def run_fast5_phase(ckpt: str, work: str, e2e_reads: list) -> dict:
+    """The reads phase's reads as fast5 files, through the port's own HDF5
+    code (no h5py): the ``N_READS`` reads written by
+    ``write_synthetic_fast5`` (each read back as the in-memory read);
+    ``extract -i <dir>`` through the CLI, whose feature TSV equals the
+    in-memory reads' (``run_extract_phase``) after sorting; ``call_mods -i
+    <dir>`` through the CLI in bfloat16 and float32 at the in-memory runs'
+    ``f5_batch_num``, whose calls equal the in-memory reads' calls row for
+    row after sorting (every device batch is padded to ``B`` rows, so a
+    site's result does not depend on its batch-mates), K1 once per device
+    batch; the committed fixtures; and the reader's µs per file on the
+    card's host (``time_reader``)."""
     import shutil
 
-    from deepsignal_tpu_torch.io.fast5 import write_synthetic_fast5
-    from deepsignal_tpu_torch.runtime.caller import run_call_mods
+    from deepsignal_tpu_torch.io.fast5 import (read_resquiggled_fast5,
+                                               synthetic_read,
+                                               write_synthetic_fast5)
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
 
     f5_dir = os.path.join(work, "fast5")
     shutil.rmtree(f5_dir, ignore_errors=True)
     os.makedirs(f5_dir)
-    out_path = os.path.join(work, "calls_fast5.tsv")
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        try:
-            run_call_mods(f5_dir, ckpt, out_path, batch_size=B)
-        except ImportError as e:
-            check("h5py" in str(e), f"fast5: the ImportError names no h5py: "
-                  f"{e}")
-            print(f"fast5: no h5py here; a directory raises: {e}", flush=True)
-            return {"h5py": False, "raised": str(e)}
-        fail("fast5: a directory ran without h5py")
-    for i, kw in enumerate(read_kwargs(FAST5_SEED, FAST5_FILES, READ_BASES)):
-        write_synthetic_fast5(os.path.join(f5_dir, f"r{i}.fast5"), **kw)
-    printed = io.StringIO()
+    kwargs = read_kwargs(READS_SEED, N_READS, READ_BASES)
+    paths = [os.path.join(f5_dir, f"read{i:04d}.fast5")
+             for i in range(len(kwargs))]
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(printed):
-        n = run_call_mods(f5_dir, ckpt, out_path, batch_size=B,
-                          nproc=EXTRACT_NPROC, f5_batch_num=4)
-    seconds = time.perf_counter() - t0
-    print(printed.getvalue(), end="", flush=True)
-    with open(out_path) as f:
-        rows = [line.split("\t") for line in f]
-    check(n == len(rows) > 0 and "0 of %d fast5 files failed" % FAST5_FILES
-          in printed.getvalue(), f"fast5: {n} calls")
-    check(bool(np.isfinite(np.float32([r[6:8] for r in rows])).all()),
-          "fast5: non-finite probabilities")
-    res = {"h5py": True, "files": FAST5_FILES, "sites": n,
-           "seconds": seconds}
+    for path, kw in zip(paths, kwargs):
+        write_synthetic_fast5(path, **kw)
+    write_s = time.perf_counter() - t0
+    check(all(same_read(read_resquiggled_fast5(p), synthetic_read(**kw))
+              for p, kw in zip(paths, kwargs)),
+          "fast5: a file does not read back as the read written")
+    res = {"files": len(paths), "write_s": write_s,
+           "mean_file_bytes": float(np.mean([os.path.getsize(p)
+                                              for p in paths]))}
+    print(f"fast5: wrote {len(paths)} files in {write_s:.3f} s", flush=True)
+
+    out = os.path.join(work, "extract_fast5.tsv")
+    flags = ["-p", str(EXTRACT_NPROC), "--f5_batch_num",
+             str(READS_PER_WORKER_BATCH)]
+    printed, seconds = cli(["extract", "-i", f5_dir, "-o", out] + flags)
+    check(f"0 of {N_READS} fast5 files failed" in printed,
+          "fast5 extract: " + printed[-300:])
+    with open(out) as f:
+        got = sorted(f.read().splitlines())
+    with open(os.path.join(work, "extract.tsv")) as f:
+        want = sorted(f.read().splitlines())
+    check(got == want, f"fast5 extract: {len(got)} rows, "
+          f"{sum(a != b for a, b in zip(got, want))} of {len(want)} differ "
+          "from the in-memory reads' rows")
+    res["extract"] = {"rows": len(got), "seconds": seconds,
+                      "sites_per_s": len(got) / seconds}
+
+    for mem in e2e_reads:
+        dtype_name = mem["dtype"]
+        out = os.path.join(work, f"calls_fast5_{dtype_name}.tsv")
+        bilstm_encoder_fused.launches = 0
+        printed, seconds = cli(["call_mods", "-i", f5_dir, "-m", ckpt, "-o",
+                                out, "--compute_dtype", dtype_name] + flags)
+        launches = bilstm_encoder_fused.launches
+        got = rows_of(out)
+        want = rows_of(os.path.join(work, f"calls_reads_{dtype_name}.tsv"))
+        tag = f"fast5 call_mods {dtype_name}"
+        if got != want:
+            print(f"{tag}: differs from the in-memory calls: "
+                  f"{compare_calls(tag, got, want, dtype_name)}", flush=True)
+        check(got == want, f"{tag}: the calls differ from the in-memory "
+              "reads' calls")
+        batches = -(-len(got) // B)
+        check(launches == batches, f"{tag}: K1 launched {launches} times "
+              f"for {batches} device batches")
+        res[dtype_name] = {
+            "sites": len(got), "seconds": seconds,
+            "sites_per_s": len(got) / seconds,
+            "memory_sites_per_s": mem["sites_per_s"],
+            "launches": launches, "device_batches": batches}
+
+    res.update(check_fast5_fixtures())
+    res.update(time_reader(paths))
     print(f"fast5: {json.dumps(res)}", flush=True)
     return res
 
@@ -2934,7 +3063,10 @@ def main() -> None:
         res["profile"] = run_e2e_reads(dtype_name, reads, ckpt, work,
                                        profiled=True)
         e2e_reads.append(res)
-    fast5 = check_fast5_entry(ckpt, work)
+    fast5 = run_fast5_phase(ckpt, work, e2e_reads)
+    for dtype_name in dtypes:
+        launches["K1", dtype_name]["call_mods_fast5"] = \
+            fast5[dtype_name]["launches"]
     t0 = time.time()
     parallel = {"sharded_reads": run_sharded_reads(reads, ckpt, work)}
     launches["K1", "bfloat16"]["sharded_reads"] = \

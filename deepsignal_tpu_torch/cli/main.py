@@ -327,7 +327,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = subparsers.add_parser(
         "extract",
         description="extract features from corrected (tombo) fast5s for "
-                    "training or testing (needs h5py)")
+                    "training or testing")
     p.add_argument("--fast5_dir", "-i", type=str, required=True,
                    help="the directory of fast5 files")
     _add_fast5_args(p)
@@ -345,8 +345,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = subparsers.add_parser("call_mods", description="call modifications")
     p.add_argument("--input_path", "-i", type=str, required=True,
-                   help="feature TSV from extract, or a fast5 directory "
-                        "(needs h5py)")
+                   help="feature TSV from extract, or a fast5 directory")
     p.add_argument("--model_path", "-m", type=str, required=True,
                    help="checkpoint directory of the trained model")
     p.add_argument("--result_file", "-o", type=str, required=True,

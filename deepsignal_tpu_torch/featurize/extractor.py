@@ -172,9 +172,10 @@ def extract_fast5_batch(reads: list, motif_seqs: list, cfg: FeatureConfig,
     error_count).  A fast5 without the corrected Alignment group counts as
     an error, as the reference's blanket except does.
 
-    Neither a missing h5py nor a native featurizer that disagrees with
-    numpy is a read's fault: the ImportError, and the check's RuntimeError
-    (run here, before any read), are raised."""
+    A native featurizer that disagrees with numpy is not a read's fault:
+    the check's RuntimeError (run here, before any read) is raised.  A file
+    that the HDF5 reader refuses (``io/hdf5.py``: VBZ, dense storage, ...)
+    is counted as a failed read, as an unreadable file is."""
     featurizer_checked()
     out = []
     errors = 0
@@ -190,8 +191,6 @@ def extract_fast5_batch(reads: list, motif_seqs: list, cfg: FeatureConfig,
                                           positions, rng)
             if feats is not None:
                 out.append(feats)
-        except ImportError:
-            raise
         except Exception:
             errors += 1
     return out, errors

@@ -10,13 +10,11 @@ Layout (SURVEY.md §2.5; extract_features.py:27,35-140,193-208):
   ``mapped_strand``, ``mapped_chrom``, ``mapped_start``
 - ``UniqueGlobalKey/channel_id``: attrs ``digitisation``, ``range``, ``offset``
 
-Attributes are decoded whether h5py gives bytes or str
+Attributes are decoded whether they are stored as bytes or as str
 (extract_features.py:84-102).
 
-``h5py`` is imported by the functions that read or write a file, never when
-this module is imported, so that the featurizer, which takes an in-memory
-``ResquiggledRead``, runs where h5py is missing; there a fast5 file raises
-an ImportError that names h5py.
+Files are read and written by the package's own HDF5 code
+(``io/hdf5.py``), so fast5 input needs no h5py.
 """
 
 from __future__ import annotations
@@ -28,18 +26,9 @@ from typing import Optional
 
 import numpy as np
 
+from . import hdf5
+
 READS_GROUP = "Raw/Reads"
-
-
-def import_h5py():
-    """The h5py module; where it is missing, an ImportError that names it."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError("reading or writing fast5 files needs h5py, which "
-                          "is not installed; featurize in-memory "
-                          "ResquiggledReads or a feature TSV instead") from e
-    return h5py
 
 
 def _decode_attr(value) -> str:
@@ -81,91 +70,69 @@ def get_fast5s(fast5_dir: str, is_recursive: bool = True) -> list:
     return fast5s
 
 
-def _attr(h5py, oid, name: bytes):
-    """One attribute through h5py's low-level API (h5a), as a scalar or an
-    array: no AttributeManager on every access."""
-    aid = h5py.h5a.open(oid, name)
-    out = np.empty(aid.shape, dtype=aid.dtype)
-    aid.read(out)
-    return out[()] if out.shape == () else out
-
-
-def _dataset(h5py, fid, path: bytes):
-    did = h5py.h5d.open(fid, path)
-    out = np.empty(did.shape, dtype=did.dtype)
-    did.read(h5py.h5s.ALL, h5py.h5s.ALL, out)
-    return did, out
-
-
 def read_resquiggled_fast5(fast5_path: str,
                            corrected_group: str = "RawGenomeCorrected_000",
                            basecall_subgroup: str = "BaseCalled_template",
                            ) -> Optional[ResquiggledRead]:
-    """Read one tombo-corrected fast5 in a single HDF5 open, through h5py's
-    low-level API (h5f/h5d/h5a); the reference opens each file three times.
-    Returns None when the corrected Alignment group is missing (the empty
-    tuple of extract_features.py:136-137); raises on a structural error so
-    that the caller can count it (extract_features.py:281-283)."""
-    h5py = import_h5py()
-    strand_path = "/".join(["Analyses", corrected_group,
-                            basecall_subgroup]).encode()
-    fid = h5py.h5f.open(fast5_path.encode(), h5py.h5f.ACC_RDONLY)
+    """Read one tombo-corrected fast5 in a single read of the file, through
+    ``io/hdf5.py``; the reference opens each file three times.  Returns
+    None when the corrected Alignment group is missing (the empty tuple of
+    extract_features.py:136-137); raises on a structural error so that the
+    caller can count it (extract_features.py:281-283), with the exception
+    types and messages of the JAX package's reader."""
+    strand_path = "/".join(["Analyses", corrected_group, basecall_subgroup])
+    root = hdf5.open_file(fast5_path)
+    # raw signal + read id (extract_features.py:41-49, 108-118)
     try:
-        # raw signal + read id (extract_features.py:41-49, 108-118)
-        try:
-            reads = h5py.h5g.open(fid, READS_GROUP.encode())
-            read_name = reads.get_objname_by_idx(0)
-            read_path = READS_GROUP.encode() + b"/" + read_name
-            _, raw_signal = _dataset(h5py, fid, read_path + b"/Signal")
-        except Exception as e:
-            raise RuntimeError(
-                "Raw data is not stored in Raw/Reads/Read_[read#]") from e
-        try:
-            read_id = _decode_attr(_attr(h5py, h5py.h5o.open(fid, read_path),
-                                         b"read_id"))
-        except KeyError as e:
-            raise KeyError("no read_id attribute on " +
-                           read_path.decode()) from e
+        reads = root.group(READS_GROUP)
+        read_path = READS_GROUP + "/" + reads.members()[0]
+        raw_signal = root.dataset(read_path + "/Signal").read()
+    except Exception as e:
+        raise RuntimeError(
+            "Raw data is not stored in Raw/Reads/Read_[read#]") from e
+    try:
+        read_id = _decode_attr(root.group(read_path).attrs["read_id"])
+    except KeyError as e:
+        raise KeyError("no read_id attribute on " + read_path) from e
 
-        try:
-            align_oid = h5py.h5o.open(fid, strand_path + b"/Alignment")
-        except KeyError:
-            return None
+    try:
+        alignment = root.group(strand_path + "/Alignment").attrs
+    except KeyError:
+        return None
 
-        # events (extract_features.py:51-72)
-        try:
-            events_did, ev = _dataset(h5py, fid, strand_path + b"/Events")
-        except KeyError as e:
-            raise RuntimeError("events not found") from e
-        try:
-            rel = _attr(h5py, events_did, b"read_start_rel_to_raw")
-        except KeyError as e:
-            raise KeyError("no read_start_rel_to_raw in event attributes") \
-                from e
-        starts = np.asarray(ev["start"], dtype=np.int64) + int(rel)
-        lengths = np.asarray(ev["length"], dtype=np.int64)
-        bases = ev["base"]
-        if bases.dtype.kind == "S":
-            # fixed-width byte strings: the buffer is the concatenated seq
-            seq = bases.tobytes().decode("utf-8") \
-                if bases.dtype.itemsize == 1 \
-                else b"".join(bases.tolist()).decode("utf-8")
-        else:
-            seq = "".join(_decode_attr(b) for b in bases)
+    # events (extract_features.py:51-72)
+    try:
+        events = root.dataset(strand_path + "/Events")
+    except KeyError as e:
+        raise RuntimeError("events not found") from e
+    ev = events.read()
+    try:
+        rel = events.attrs["read_start_rel_to_raw"]
+    except KeyError as e:
+        raise KeyError("no read_start_rel_to_raw in event attributes") \
+            from e
+    starts = np.asarray(ev["start"], dtype=np.int64) + int(rel)
+    lengths = np.asarray(ev["length"], dtype=np.int64)
+    bases = ev["base"]
+    if bases.dtype.kind == "S":
+        # fixed-width byte strings: the buffer is the concatenated seq
+        seq = bases.tobytes().decode("utf-8") \
+            if bases.dtype.itemsize == 1 \
+            else b"".join(bases.tolist()).decode("utf-8")
+    else:
+        seq = "".join(_decode_attr(b) for b in bases)
 
-        # alignment attrs (extract_features.py:75-105)
-        align_strand = _decode_attr(_attr(h5py, align_oid, b"mapped_strand"))
-        chrom = _decode_attr(_attr(h5py, align_oid, b"mapped_chrom"))
-        chrom_start = int(_attr(h5py, align_oid, b"mapped_start"))
-        read_strand = "t" if basecall_subgroup.endswith("template") else "c"
+    # alignment attrs (extract_features.py:75-105)
+    align_strand = _decode_attr(alignment["mapped_strand"])
+    chrom = _decode_attr(alignment["mapped_chrom"])
+    chrom_start = int(alignment["mapped_start"])
+    read_strand = "t" if basecall_subgroup.endswith("template") else "c"
 
-        # channel scaling (extract_features.py:193-208)
-        channel = h5py.h5o.open(fid, b"UniqueGlobalKey/channel_id")
-        digi = float(_attr(h5py, channel, b"digitisation"))
-        parange = float(_attr(h5py, channel, b"range"))
-        offset = float(_attr(h5py, channel, b"offset"))
-    finally:
-        fid.close()
+    # channel scaling (extract_features.py:193-208)
+    channel = root.group("UniqueGlobalKey/channel_id").attrs
+    digi = float(channel["digitisation"])
+    parange = float(channel["range"])
+    offset = float(channel["offset"])
 
     return ResquiggledRead(
         read_id=read_id, raw_signal=raw_signal, event_starts=starts,
@@ -184,7 +151,7 @@ def synthetic_read(read_id: str, raw_signal: np.ndarray,
                    ) -> ResquiggledRead:
     """The read that ``read_resquiggled_fast5`` returns for the file that
     ``write_synthetic_fast5`` writes with the same arguments, made in
-    memory, with no h5py and no file."""
+    memory, with no file."""
     return ResquiggledRead(
         read_id=read_id,
         raw_signal=np.asarray(raw_signal, dtype=np.int16),
@@ -211,28 +178,26 @@ def write_synthetic_fast5(path: str, read_id: str, raw_signal: np.ndarray,
     """Write a minimal tombo-layout fast5 (a test fixture; layout per
     SURVEY.md §2.5).  ``event_starts_rel`` are relative to
     ``read_start_rel_to_raw``."""
-    h5py = import_h5py()
-    with h5py.File(path, "w") as h5:
-        rg = h5.create_group(f"{READS_GROUP}/Read_0")
-        rg.create_dataset("Signal", data=np.asarray(raw_signal, dtype=np.int16))
-        rg.attrs["read_id"] = np.bytes_(read_id.encode())
-
-        eg = h5.create_group(f"Analyses/{corrected_group}/{basecall_subgroup}")
-        n = len(seq)
-        ev = np.empty(n, dtype=[("start", "<i8"), ("length", "<i8"),
-                                ("base", "S1")])
-        ev["start"] = np.asarray(event_starts_rel, dtype=np.int64)
-        ev["length"] = np.asarray(event_lengths, dtype=np.int64)
-        ev["base"] = np.array([s.encode() for s in seq], dtype="S1")
-        events = eg.create_dataset("Events", data=ev)
-        events.attrs["read_start_rel_to_raw"] = np.int64(read_start_rel_to_raw)
-
-        ag = eg.create_group("Alignment")
-        ag.attrs["mapped_strand"] = np.bytes_(mapped_strand.encode())
-        ag.attrs["mapped_chrom"] = np.bytes_(mapped_chrom.encode())
-        ag.attrs["mapped_start"] = np.int64(mapped_start)
-
-        cg = h5.create_group("UniqueGlobalKey/channel_id")
-        cg.attrs["digitisation"] = np.float64(digitisation)
-        cg.attrs["range"] = np.float64(prange)
-        cg.attrs["offset"] = np.float64(offset)
+    n = len(seq)
+    ev = np.empty(n, dtype=[("start", "<i8"), ("length", "<i8"),
+                            ("base", "S1")])
+    ev["start"] = np.asarray(event_starts_rel, dtype=np.int64)
+    ev["length"] = np.asarray(event_lengths, dtype=np.int64)
+    ev["base"] = np.array([s.encode() for s in seq], dtype="S1")
+    strand = f"Analyses/{corrected_group}/{basecall_subgroup}"
+    tree = {"Raw": {"Reads": {"Read_0": {
+                "Signal": np.asarray(raw_signal, dtype=np.int16)}}},
+            "Analyses": {corrected_group: {basecall_subgroup: {
+                "Events": ev, "Alignment": {}}}},
+            "UniqueGlobalKey": {"channel_id": {}}}
+    hdf5.write_file(path, tree, attrs={
+        f"{READS_GROUP}/Read_0": {"read_id": np.bytes_(read_id.encode())},
+        f"{strand}/Events": {
+            "read_start_rel_to_raw": np.int64(read_start_rel_to_raw)},
+        f"{strand}/Alignment": {
+            "mapped_strand": np.bytes_(mapped_strand.encode()),
+            "mapped_chrom": np.bytes_(mapped_chrom.encode()),
+            "mapped_start": np.int64(mapped_start)},
+        "UniqueGlobalKey/channel_id": {
+            "digitisation": np.float64(digitisation),
+            "range": np.float64(prange), "offset": np.float64(offset)}})

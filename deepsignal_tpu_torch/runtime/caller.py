@@ -223,8 +223,7 @@ def run_call_mods(input_path: str, model_path: str, result_file: str,
     10-column call TSV.  Returns the call count.
 
     ``input_path`` is a feature TSV, parsed in a background reader process,
-    or a directory of tombo-resquiggled fast5 files (which needs h5py),
-    featurized by ``nproc - 1`` extract workers (at least one) in batches
+    or a directory of tombo-resquiggled fast5 files, featurized by ``nproc - 1`` extract workers (at least one) in batches
     of ``f5_batch_num`` files, with ``feature_cfg``, the contig lengths of
     ``reference_path`` and the sites of ``position_file``.  Either starts
     first, so that its start runs beside the checkpoint load.

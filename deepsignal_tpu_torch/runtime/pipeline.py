@@ -54,7 +54,7 @@ from ..featurize.extractor import (extract_fast5_batch,
                                    read_features_to_batch,
                                    read_position_file)
 from ..io import native
-from ..io.fast5 import ResquiggledRead, get_fast5s, import_h5py
+from ..io.fast5 import ResquiggledRead, get_fast5s
 from ..io.fasta import get_contig2len
 from ..io.feature_codec import FeatureBatch, iter_feature_batches_by_read
 from ..parallel.dist import shard_file_list
@@ -170,8 +170,8 @@ def _extract_worker(conn, cfg: FeatureConfig, motif_seqs, chrom2len,
     a FeatureBatch (or None) with ``as_batch``, else the TSV rows; then sign
     off with ``("done", n_batches, segment_stats calls, format_rows6
     calls)``, the worker's count of native featurizer calls.  An exception
-    that is not one read's fault (a missing h5py, a native featurizer that
-    disagrees with numpy) is sent as ``("error", exc)`` and ends the
+    that is not one read's fault (a native featurizer that disagrees with
+    numpy) is sent as ``("error", exc)`` and ends the
     worker."""
     processed = 0
     try:
@@ -425,9 +425,7 @@ def _preprocess(fast5_dir: str, reference_path, position_file,
                 is_recursive: bool, host_shard=None):
     """The directory's fast5 files (with ``host_shard=(k, n)``, n > 1, the
     k-th stride shard of the sorted list), the contig lengths and the
-    positions filter; raises the ImportError that names h5py where h5py is
-    missing, before any worker starts."""
-    import_h5py()
+    positions filter."""
     fast5_files = get_fast5s(fast5_dir, is_recursive)
     if host_shard is not None and host_shard[1] > 1:
         fast5_files = shard_file_list(fast5_files, *host_shard)

@@ -2,6 +2,9 @@
 by deepsignal_tpu, through the port (on the CPU) and through the JAX
 package, compared row by row."""
 
+import os
+import pathlib
+import subprocess
 import sys
 
 import numpy as np
@@ -21,6 +24,8 @@ from deepsignal_tpu_torch.runtime import caller
 from deepsignal_tpu_torch.train.checkpoints import state_dict_to_variables
 
 torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 K, S = 5, 25
 # 3 layers at hidden 128: the fused-encoder path
@@ -122,15 +127,65 @@ def test_bf16_calls_track_float32(files):
         [r[8] for r, s in zip(f32, sure) if s]
 
 
-def test_fast5_directory_input_is_not_yet_ported(files, monkeypatch):
-    # fast5 input is ported (tests/test_torch_extract.py); where h5py is
-    # missing, as on the card's machine, a directory raises the ImportError
-    # that names it, before a worker starts or the checkpoint loads
+def test_fast5_directory_input_is_not_yet_ported(files, tmp_path):
+    """A fast5 directory calls where h5py cannot be imported (as on the
+    card's machine): the port's ``run_call_mods`` runs in a process whose
+    path puts an ``h5py`` that raises ImportError first, so its extract
+    workers cannot import h5py either; its calls equal the JAX package's
+    on the same files (half of them written by the port's writer, half by
+    the JAX package's)."""
+    from deepsignal_tpu.io.fast5 import write_synthetic_fast5 as jax_write
+    from deepsignal_tpu_torch.io.fast5 import write_synthetic_fast5
+
     d, _, ckpt = files
-    monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="needs h5py"):
-        caller.run_call_mods(str(d), ckpt, str(d / "x.tsv"), device="cpu")
-    assert not (d / "x.tsv").exists()
+    f5 = tmp_path / "fast5"
+    f5.mkdir()
+    rng = np.random.default_rng(12)
+    for i in range(6):
+        seq = "".join(rng.choice(list("ACGT"), 120))
+        lengths = rng.integers(3, 15, 120)
+        write = write_synthetic_fast5 if i % 2 else jax_write
+        write(str(f5 / f"r{i}.fast5"), f"read-{i}",
+              rng.integers(400, 900, int(lengths.sum()) + 5).astype(np.int16),
+              np.concatenate([[0], np.cumsum(lengths)[:-1]]), lengths, seq,
+              "chr1", 300 * i, "+-"[i % 2], read_start_rel_to_raw=2)
+    blocker = tmp_path / "blocked"
+    blocker.mkdir()
+    (blocker / "h5py.py").write_text("raise ImportError('h5py is blocked')\n")
+    script = tmp_path / "call.py"
+    script.write_text(
+        "import sys\n"
+        "from deepsignal_tpu_torch.core.config import FeatureConfig\n"
+        "from deepsignal_tpu_torch.runtime.caller import run_call_mods\n"
+        "if __name__ == '__main__':\n"
+        "    try:\n"
+        "        import h5py  # noqa: F401\n"
+        "        sys.exit('h5py imported')\n"
+        "    except ImportError:\n"
+        "        pass\n"
+        f"    n = run_call_mods({str(f5)!r}, {ckpt!r}, "
+        f"{str(tmp_path / 'port.tsv')!r}, FeatureConfig(kmer_len={K}, "
+        f"cent_signals_len={S}), batch_size=16, f5_batch_num=2, "
+        "compute_dtype='float32', device='cpu', nproc=3)\n"
+        "    print(n)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(blocker), str(REPO)] + os.environ.get("PYTHONPATH", "").split(
+            os.pathsep)))
+    out = subprocess.run([sys.executable, str(script)], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "0 of 6 fast5 files failed" in out.stdout
+    jax_run_call_mods(str(f5), ckpt, str(tmp_path / "jax.tsv"),
+                      JaxFeatureConfig(kmer_len=K, cent_signals_len=S),
+                      batch_size=16, f5_batch_num=2, nproc=2, use_mesh=False,
+                      compute_dtype="float32")
+    got = sorted(_read(tmp_path / "port.tsv"))
+    want = sorted(_read(tmp_path / "jax.tsv"))
+    assert int(out.stdout.split()[-1]) == len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert a[:6] + a[8:] == b[:6] + b[8:]
+        np.testing.assert_allclose(np.float32(a[6:8]), np.float32(b[6:8]),
+                                   rtol=0, atol=PROB_TOL)
 
 
 def test_wire_counts_round_trip_through_int16():

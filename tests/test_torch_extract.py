@@ -5,6 +5,7 @@ dies.  Every wait is bounded."""
 import multiprocessing as mp
 import os
 import signal as signals
+import subprocess
 import sys
 import threading
 import time
@@ -300,10 +301,22 @@ def test_rows_do_not_depend_on_the_worker_count(tmp_path):
     assert out[2] and out[2] == out[4]
 
 
-def test_a_sigkilled_worker_is_accounted_for(fast5_dir, capsys):
+@pytest.fixture(scope="module")
+def long_fast5_dir(tmp_path_factory):
+    """``fast5_dir``'s reads at 8,000 bases: a batch takes a worker ~10 ms,
+    so a kill that follows the first answer lands while the workers still
+    hold batches (at 160 bases they can drain all eight first)."""
+    d = tmp_path_factory.mktemp("f5long")
+    for i, kw in enumerate(_read_kwargs(n_bases=8000)):
+        write_synthetic_fast5(str(d / f"r{i}.fast5"), **kw)
+    return str(d)
+
+
+def test_a_sigkilled_worker_is_accounted_for(long_fast5_dir, capsys):
     """Five runs, each bounded: one of two workers is killed after the first
     batch; the run ends, the dead worker is counted with the batch it held,
     and every other batch arrives."""
+    fast5_dir = long_fast5_dir
     for attempt in range(5):
         stats = {}
 
@@ -324,7 +337,8 @@ def test_a_sigkilled_worker_is_accounted_for(fast5_dir, capsys):
     assert _extra_processes() == []
 
 
-def test_when_every_worker_dies_the_rest_is_lost(fast5_dir):
+def test_when_every_worker_dies_the_rest_is_lost(long_fast5_dir):
+    fast5_dir = long_fast5_dir
     stats = {}
 
     def run():
@@ -468,3 +482,80 @@ def test_call_mods_of_a_directory_and_of_its_extracted_tsv_agree(
     np.testing.assert_allclose(np.float32([r[6:8] for r in a]),
                                np.float32([r[6:8] for r in b]), rtol=0,
                                atol=1e-4)
+
+
+GOLDEN_SCRIPT = '''
+import dataclasses
+import os
+import sys
+
+import numpy as np
+
+from deepsignal_tpu_torch.cli import main as cli
+from deepsignal_tpu_torch.io.fast5 import write_synthetic_fast5
+
+if __name__ == "__main__":
+    try:
+        import h5py  # noqa: F401
+        sys.exit("h5py imported")
+    except ImportError:
+        pass
+    where, out = sys.argv[1:]
+    # the golden fixture's reads, drawn as tests/test_golden.py draws them
+    rng = np.random.default_rng(424242)
+    genome = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 3000)])
+    for i, strand in enumerate(["+", "-", "+"]):
+        start = 700 * i
+        seq = genome[start:start + 250]
+        lengths = rng.integers(3, 22, size=len(seq))
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        raw = rng.integers(380, 920,
+                           size=int(lengths.sum()) + 7).astype(np.int16)
+        write_synthetic_fast5(os.path.join(where, "fast5", f"g{i}.fast5"),
+                              read_id=f"golden-{i}", raw_signal=raw,
+                              event_starts_rel=starts, event_lengths=lengths,
+                              seq=seq, mapped_chrom="chrG",
+                              mapped_start=start, mapped_strand=strand,
+                              read_start_rel_to_raw=4)
+    ref = os.path.join(where, "ref.fa")
+    with open(ref, "w") as f:
+        f.write(">chrG\\n" + genome + "\\n")
+    # the golden rows were drawn with central_sample_seed 99, which the
+    # CLI (as the JAX package's) has no flag for
+    feature_cfg = cli._feature_cfg_from_args
+    cli._feature_cfg_from_args = lambda args: dataclasses.replace(
+        feature_cfg(args), central_sample_seed=99)
+    sys.exit(cli.main(["extract", "-i", os.path.join(where, "fast5"), "-o",
+                       out, "--reference_path", ref, "-p", "2"]))
+'''
+
+
+def test_golden_features_from_files_written_and_read_without_h5py(tmp_path):
+    """The golden fixture's three reads, written by the port's writer and
+    extracted through the port's CLI in processes that cannot import h5py
+    (an ``h5py`` that raises ImportError is first on their path, the
+    spawned workers' too), give tests/golden/features_golden.tsv byte for
+    byte (its rows sorted: the files are listed in directory order)."""
+    blocker = tmp_path / "blocked"
+    blocker.mkdir()
+    (blocker / "h5py.py").write_text("raise ImportError('h5py is blocked')\n")
+    (tmp_path / "fast5").mkdir()
+    script = tmp_path / "golden.py"
+    script.write_text(GOLDEN_SCRIPT)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(blocker), repo] + os.environ.get("PYTHONPATH", "").split(
+            os.pathsep)))
+    out = tmp_path / "features.tsv"
+    done = subprocess.run([sys.executable, str(script), str(tmp_path),
+                           str(out)], env=env, cwd=repo, capture_output=True,
+                          text=True, timeout=BOUND_S)
+    assert done.returncode == 0, done.stderr
+    assert "0 of 3 fast5 files failed" in done.stdout
+    with open(os.path.join(repo, "tests", "golden",
+                           "features_golden.tsv"), "rb") as f:
+        want = f.read()
+    got = out.read_bytes()
+    assert got.endswith(b"\n") and want.endswith(b"\n")
+    assert sorted(got.splitlines()) == sorted(want.splitlines())
+    assert len(got) == len(want)

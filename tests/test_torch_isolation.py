@@ -61,25 +61,50 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
 
 
 def test_port_modules_import_without_h5py():
-    """With h5py blocked, every port module imports, and reading or writing
-    a fast5 file raises the ImportError that names h5py."""
+    """With h5py blocked, every port module imports, and a fast5 file is
+    written and read back as the read it was written from."""
     code = ("import sys\n"
             "sys.modules['h5py'] = None\n"
             f"for m in {_port_modules()!r}:\n"
             "    __import__(m)\n"
+            "import dataclasses, os, tempfile\n"
+            "import numpy as np\n"
             "from deepsignal_tpu_torch.io import fast5\n"
-            "for call in (lambda: fast5.read_resquiggled_fast5('x.fast5'),\n"
-            "             lambda: fast5.write_synthetic_fast5(\n"
-            "                 'x.fast5', 'r', [1], [0], [1], 'A', 'c', 0, '+')):\n"
-            "    try:\n"
-            "        call()\n"
-            "    except ImportError as e:\n"
-            "        print(e)\n")
+            "kw = dict(read_id='r', raw_signal=np.arange(40, dtype=np.int16),\n"
+            "          event_starts_rel=np.arange(0, 40, 4),\n"
+            "          event_lengths=np.full(10, 4), seq='ACGTACGTAC',\n"
+            "          mapped_chrom='c', mapped_start=7, mapped_strand='-',\n"
+            "          read_start_rel_to_raw=2)\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    path = os.path.join(d, 'x.fast5')\n"
+            "    fast5.write_synthetic_fast5(path, **kw)\n"
+            "    got = fast5.read_resquiggled_fast5(path)\n"
+            "want = fast5.synthetic_read(**kw)\n"
+            "for f in dataclasses.fields(want):\n"
+            "    a, b = getattr(got, f.name), getattr(want, f.name)\n"
+            "    assert type(a) is type(b) and np.array_equal(a, b), f.name\n"
+            "    assert getattr(a, 'dtype', 0) == getattr(b, 'dtype', 0)\n"
+            "print('h5py' in sys.modules and sys.modules['h5py'] is not None)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    lines = out.stdout.strip().splitlines()
-    assert len(lines) == 2 and all("needs h5py" in line for line in lines)
+    assert out.stdout.strip() == "False"
+
+
+def test_port_sources_import_no_h5py():
+    """No module of the port, and not chip_smoke.py, imports h5py: the
+    card's machine has none, and the port reads fast5 files itself."""
+    pattern = re.compile(r"^\s*(import\s+h5py|from\s+h5py\b)|"
+                         r"import_module\(\s*[\"']h5py|"
+                         r"__import__\(\s*[\"']h5py", re.M)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert REPO / "deepsignal_tpu_torch" / "io" / "hdf5.py" in files
+    offenders = [str(p.relative_to(REPO)) for p in files
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+    # and the check sees an import where there is one
+    assert pattern.search("x = 1\n    import h5py\n")
+    assert pattern.search("from h5py import File\n")
 
 
 def test_cli_module_does_not_import_torch():
