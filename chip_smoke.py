@@ -1560,6 +1560,7 @@ def run_fast5_phase(ckpt: str, work: str, e2e_reads: list) -> dict:
                                                write_synthetic_fast5)
     from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
 
+    card = card_line()
     f5_dir = os.path.join(work, "fast5")
     shutil.rmtree(f5_dir, ignore_errors=True)
     os.makedirs(f5_dir)
@@ -1576,7 +1577,8 @@ def run_fast5_phase(ckpt: str, work: str, e2e_reads: list) -> dict:
     res = {"files": len(paths), "write_s": write_s,
            "mean_file_bytes": float(np.mean([os.path.getsize(p)
                                               for p in paths]))}
-    print(f"fast5: wrote {len(paths)} files in {write_s:.3f} s", flush=True)
+    print(f"fast5: wrote {len(paths)} files in {write_s:.3f} s | {card}",
+          flush=True)
 
     out = os.path.join(work, "extract_fast5.tsv")
     flags = ["-p", str(EXTRACT_NPROC), "--f5_batch_num",
@@ -1620,6 +1622,7 @@ def run_fast5_phase(ckpt: str, work: str, e2e_reads: list) -> dict:
 
     res.update(check_fast5_fixtures())
     res.update(time_reader(paths))
+    res["card"] = card
     print(f"fast5: {json.dumps(res)}", flush=True)
     return res
 
