@@ -49,7 +49,12 @@ per-layer kernel.  Then it drives the main paths at full width:
   ``call_mods -i <dir>`` through the CLI gives the in-memory reads' calls
   row for row in bfloat16 and in float32, K1 launched once per device
   batch; the committed fixtures (``tests/fixtures/fast5``) read as the JAX
-  package's reader read them, and the reader's µs per file is timed;
+  package's reader read them, and the reader's µs per file is timed; one
+  read in HDF5's earliest and latest file formats (``tombo_like.fast5``
+  and ``tombo_latest.fast5``: dense links and attributes, an
+  extensible-array chunk index) gives equal rows and calls through
+  ``extract -i`` and ``call_mods -i`` in both dtypes, K1 once a run, and
+  the reader is timed on 120 copies of each;
 - TF1 import: the published model's name space
   (``tests/fixtures/tf1_variables_bn17_sn360.json``) with seeded values and
   the Adam slots and bookkeeping of a ``tf.train.Saver`` checkpoint, as
@@ -133,7 +138,13 @@ READS_PER_WORKER_BATCH = 8
 EXTRACT_NPROC = 4
 FEATURIZE_READS = 8
 READS_SEED = 606
-FAST5_FIXTURES = ("synthetic", "tombo_like", "latest", "no_alignment")
+FAST5_FIXTURES = ("synthetic", "tombo_like", "latest", "no_alignment",
+                  "tombo_latest")
+# one read in HDF5's earliest format and, from the same draws, in its latest
+# (dense links and attributes, an extensible-array chunk index); the reader
+# timed on this many copies of each
+FORMAT_FIXTURES = ("tombo_like", "tombo_latest")
+FORMAT_COPIES = 120
 # the TF1 phase: the published name space (581 variables) with seeded
 # values; evaluate's shuffle
 TF1_VARIABLES = 581
@@ -1551,8 +1562,9 @@ def run_fast5_phase(ckpt: str, work: str, e2e_reads: list) -> dict:
     ``f5_batch_num``, whose calls equal the in-memory reads' calls row for
     row after sorting (every device batch is padded to ``B`` rows, so a
     site's result does not depend on its batch-mates), K1 once per device
-    batch; the committed fixtures; and the reader's µs per file on the
-    card's host (``time_reader``)."""
+    batch; the committed fixtures; the reader's µs per file on the
+    card's host (``time_reader``); and one read in two file formats
+    (``run_fixture_formats``)."""
     import shutil
 
     from deepsignal_tpu_torch.io.fast5 import (read_resquiggled_fast5,
@@ -1622,8 +1634,72 @@ def run_fast5_phase(ckpt: str, work: str, e2e_reads: list) -> dict:
 
     res.update(check_fast5_fixtures())
     res.update(time_reader(paths))
+    res["formats"] = run_fixture_formats(ckpt, work, card)
     res["card"] = card
     print(f"fast5: {json.dumps(res)}", flush=True)
+    return res
+
+
+def run_fixture_formats(ckpt: str, work: str, card: str) -> dict:
+    """The committed fixtures ``FORMAT_FIXTURES``, one read in HDF5's
+    earliest and latest file formats, each alone in a directory:
+    ``extract -i`` and ``call_mods -i`` through the CLI in bfloat16 and
+    float32 give the same rows and the same calls from both files, K1
+    launched once a run (the read's sites are one device batch); then the
+    reader's µs per file (``time_reader``) on ``FORMAT_COPIES`` copies of
+    each."""
+    import shutil
+
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+
+    where = os.path.join(REPO, "tests", "fixtures", "fast5")
+    res, rows = {}, {}
+    for name in FORMAT_FIXTURES:
+        src = os.path.join(where, f"{name}.fast5")
+        one = os.path.join(work, f"fixture_{name}")
+        shutil.rmtree(one, ignore_errors=True)
+        os.makedirs(one)
+        shutil.copy(src, one)
+        out = os.path.join(work, f"extract_{name}.tsv")
+        printed, seconds = cli(["extract", "-i", one, "-o", out, "-p", "2"])
+        check("0 of 1 fast5 files failed" in printed,
+              f"fast5 {name} extract: " + printed[-300:])
+        rows[name, "extract"] = rows_of(out)
+        res[name] = {"extract": {"rows": len(rows[name, "extract"]),
+                                 "seconds": seconds}}
+        for dtype_name in ("bfloat16", "float32"):
+            out = os.path.join(work, f"calls_{name}_{dtype_name}.tsv")
+            bilstm_encoder_fused.launches = 0
+            printed, seconds = cli(["call_mods", "-i", one, "-m", ckpt, "-o",
+                                    out, "--compute_dtype", dtype_name, "-p",
+                                    "2"])
+            launches = bilstm_encoder_fused.launches
+            check(launches == 1, f"fast5 {name} call_mods {dtype_name}: K1 "
+                  f"launched {launches} times for one device batch")
+            rows[name, dtype_name] = rows_of(out)
+            res[name][dtype_name] = {"sites": len(rows[name, dtype_name]),
+                                     "seconds": seconds,
+                                     "launches": launches}
+        copies = os.path.join(work, f"copies_{name}")
+        shutil.rmtree(copies, ignore_errors=True)
+        os.makedirs(copies)
+        paths = [os.path.join(copies, f"{name}_{i:03d}.fast5")
+                 for i in range(FORMAT_COPIES)]
+        for path in paths:
+            shutil.copy(src, path)
+        res[name]["file_bytes"] = os.path.getsize(src)
+        res[name].update(time_reader(paths))
+    first, second = FORMAT_FIXTURES
+    for key in ("extract", "bfloat16", "float32"):
+        check(len(rows[first, key]) > 0 and
+              rows[first, key] == rows[second, key],
+              f"fast5 {second} {key}: {len(rows[second, key])} rows differ "
+              f"from {first}'s {len(rows[first, key])}")
+    us = {name: res[name]["reader_us_per_file"] for name in FORMAT_FIXTURES}
+    res["latest_over_earliest"] = us[second] / us[first]
+    print(f"fast5 formats: the reader {us[first]:.1f} µs a file "
+          f"({first}), {us[second]:.1f} µs ({second}); equal rows and calls, "
+          f"K1 once a run | {card}", flush=True)
     return res
 
 
@@ -3070,6 +3146,9 @@ def main() -> None:
     for dtype_name in dtypes:
         launches["K1", dtype_name]["call_mods_fast5"] = \
             fast5[dtype_name]["launches"]
+        for name in FORMAT_FIXTURES:
+            launches["K1", dtype_name][f"call_mods_{name}"] = \
+                fast5["formats"][name][dtype_name]["launches"]
     t0 = time.time()
     parallel = {"sharded_reads": run_sharded_reads(reads, ckpt, work)}
     launches["K1", "bfloat16"]["sharded_reads"] = \

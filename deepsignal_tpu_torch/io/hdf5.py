@@ -1,35 +1,42 @@
-"""The subset of HDF5 that tombo-resquiggled fast5 files use, read and
-written in Python and numpy.
+"""The subset of HDF5 that fast5 files use, read and written in Python and
+numpy.
 
 The reader takes one ``read`` of the file and parses it in place:
 
 - superblock versions 0-3; object headers of versions 1 and 2 with their
   continuation blocks (version 2's Jenkins lookup3 checksums verified);
 - old-style groups (a symbol-table message, the group's version 1 B-tree,
-  its symbol nodes and its local heap) and new-style groups whose links
-  are stored in the header (hard-link messages); members are listed in
-  name order, as HDF5's ``H5Gget_objname_by_idx`` lists them;
+  its symbol nodes and its local heap) and new-style groups, whose links
+  are link messages in the header or, past 8 links, stored densely;
+  members are listed in name order, as HDF5's ``H5Gget_objname_by_idx``
+  lists them;
+- dense link and attribute storage (HDF5 1.8's format): the messages in a
+  fractal heap (managed objects in its direct and indirect blocks, tiny
+  objects in the heap ID, huge objects through the heap's version 2
+  B-tree), indexed by the lookup3 hash of their names in a version 2
+  B-tree, which is walked to list them and searched to look one up;
 - scalar and simple dataspaces; fixed-point numbers of either byte order
   and sign, IEEE float32 and float64, fixed-length strings (null-
   terminated, null- or space-padded), compounds of these (member encodings
   of versions 1-3), enumerations (as their integers; h5py's booleans as
   booleans) and variable-length strings (through the global heap);
 - compact, contiguous and chunked data: a layout version 3 chunk index
-  (a version 1 B-tree) and the layout version 4 single-chunk, implicit and
-  fixed-array indexes; an undefined address yields the fill value;
-- filter pipelines of versions 1 and 2 with deflate, shuffle and
-  fletcher32 (the checksum verified and stripped);
+  (a version 1 B-tree) and the layout version 4 single-chunk, implicit,
+  fixed-array, extensible-array and version 2 B-tree indexes (HDF5 1.10's
+  format); an undefined address yields the fill value;
+- filter pipelines of versions 1 and 2 with deflate, shuffle, fletcher32
+  (the checksum verified and stripped) and h5py's LZF (32000);
 - attribute messages of versions 1-3, on groups and datasets.
 
-Datasets come back as numpy arrays at the stored dtype and byte order, a
-copy out of the file's bytes, with no per-element Python loop (except for
-variable-length strings).  What the reader does not take raises a
-``NotImplementedError`` that names it: dense link or attribute storage (a
-fractal heap), extensible-array and version 2 B-tree chunk indexes,
-virtual and external storage, soft and external links, and every other
-filter (filter 32020, VBZ, with the way to rewrite such files as gzip).
-A file that is not HDF5, or that is cut short, raises a ``ValueError``
-that names the object and the byte range at fault.
+Every checksum of the version 2 metadata is verified.  Datasets come back
+as numpy arrays at the stored dtype and byte order, a copy out of the
+file's bytes, with no per-element Python loop (except for variable-length
+strings).  What the reader does not take raises a ``NotImplementedError``
+that names it: a fractal heap with an I/O filter pipeline, virtual and
+external storage, soft and external links, and every other filter
+(filter 32020, VBZ, with the way to rewrite such files as gzip).  A file
+that is not HDF5, or that is cut short, raises a ``ValueError`` that
+names the object and the byte range at fault.
 
 The writer writes the layout that h5py's default file format gives the
 datasets of a synthetic fast5: superblock 0, version 1 object headers,
@@ -56,6 +63,7 @@ import numpy as np
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 VBZ_FILTER = 32020
+LZF_FILTER = 32000  # h5py's own, registered when h5py is imported
 
 # object header message types
 _NIL, _DATASPACE, _LINK_INFO, _DATATYPE = 0x00, 0x01, 0x02, 0x03
@@ -147,6 +155,57 @@ def _unshuffle(data: bytes, size: int) -> bytes:
     n = len(data) // size
     body = np.frombuffer(data, np.uint8, n * size).reshape(size, n)
     return body.T.tobytes() + data[n * size:]
+
+
+def _unlzf(data: bytes, what: str) -> bytes:
+    """LZF's decompression (liblzf's ``lzf_decompress``, h5py's filter
+    32000): a control byte below 32 starts a run of that many plus one
+    literal bytes; any other holds a back-reference's length (its top 3
+    bits plus 2, 7 meaning a length byte follows) and the high bits of its
+    distance."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        ctrl = data[i]
+        i += 1
+        if ctrl < 32:
+            if i + ctrl + 1 > n:
+                raise ValueError(f"{what}: LZF: a literal run past the end")
+            out += data[i:i + ctrl + 1]
+            i += ctrl + 1
+            continue
+        length = ctrl >> 5
+        if length == 7:
+            length += data[i] if i < n else 0
+            i += 1
+        if i >= n:
+            raise ValueError(f"{what}: LZF: a back-reference past the end")
+        ref = len(out) - ((ctrl & 31) << 8) - data[i] - 1
+        i += 1
+        length += 2
+        if ref < 0:
+            raise ValueError(f"{what}: LZF: a back-reference before the start")
+        period = len(out) - ref  # a reference may overlap what it writes
+        piece = out[ref:ref + min(length, period)]
+        out += (piece * -(-length // len(piece)))[:length]
+    return bytes(out)
+
+
+def _enc_size(n: int) -> int:
+    """Bytes HDF5 takes to store counts up to ``n`` (``H5VM_limit_enc_size``:
+    floor(log2 n) / 8 + 1)."""
+    return (max(n, 1).bit_length() - 1) // 8 + 1
+
+
+def _log2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def _le(cols: np.ndarray) -> np.ndarray:
+    """Little-endian unsigned integers from the uint64 byte columns of
+    ``cols`` (n x width)."""
+    shifts = np.arange(cols.shape[1], dtype=np.uint64) * np.uint64(8)
+    return (cols << shifts).sum(axis=1, dtype=np.uint64)
 
 
 class _Type:
@@ -494,6 +553,273 @@ class _File:
         self.need(start, n, "a global heap object")
         return self.buf[start:start + n]
 
+    def version0(self, addr: int, sig: bytes, what: str) -> None:
+        """The signature ``sig`` and version 0 at ``addr``."""
+        self.signature(addr, sig, what)
+        self.need(addr, 5, what)
+        if self.buf[addr + 4] != 0:
+            raise NotImplementedError(f"{self.path}: {what} at byte {addr}: "
+                                      f"version {self.buf[addr + 4]}")
+
+
+class _BTree2:
+    """A version 2 B-tree (``BTHD``; nodes ``BTIN`` and ``BTLF``, each
+    checksummed): the file positions of its records, all of them or those
+    of one key."""
+
+    def __init__(self, f: _File, addr: int, what: str):
+        self.f, self.what = f, what
+        f.version0(addr, b"BTHD", what)
+        self.type = f.buf[addr + 5]
+        node_size, self.rec_size, self.depth = struct.unpack_from(
+            "<IHH", f.buf, addr + 6)
+        self.root = f.offset(addr + 16)
+        self.nroot, = struct.unpack_from("<H", f.buf, addr + 16 + f.so)
+        f.checksum(addr, addr + 18 + f.so + f.sl, what)
+        # An internal node at depth d points to each child with its address,
+        # its record count (a width for the most records a leaf holds) and,
+        # below depth 1, the records under it (a width for the most a child
+        # at depth d - 1 holds): H5B2__hdr_init's node_info table.
+        most = (node_size - 10) // self.rec_size  # 10: signature to checksum
+        self.count_width = _enc_size(most)
+        self.total_width = [0]
+        for _ in range(self.depth):
+            pointer = f.so + self.count_width + self.total_width[-1]
+            n = (node_size - 10 - pointer) // (self.rec_size + pointer)
+            most = (n + 1) * most + n
+            self.total_width.append(_enc_size(most))
+
+    def records(self, key=None, match=None) -> list:
+        """Positions of the records in the tree's order; with ``key`` (a
+        function of a record's position), only those whose key is
+        ``match``, descending only into the nodes that can hold one (two
+        records may share a key)."""
+        out = []
+        if self.root is not None and self.nroot:
+            self._node(self.root, self.nroot, self.depth, key, match, out)
+        return out
+
+    def _node(self, addr: int, nrec: int, depth: int, key, match,
+              out: list) -> None:
+        f, buf = self.f, self.f.buf
+        what = f"{self.what}'s node"
+        f.version0(addr, b"BTIN" if depth else b"BTLF", what)
+        recs = [addr + 6 + i * self.rec_size for i in range(nrec)]
+        p = addr + 6 + nrec * self.rec_size
+        children = []
+        if depth:
+            width = self.count_width
+            pointer = f.so + width + self.total_width[depth - 1]
+            f.need(p, (nrec + 1) * pointer, what)
+            for q in range(p, p + (nrec + 1) * pointer, pointer):
+                children.append((f.offset(q), int.from_bytes(
+                    buf[q + f.so:q + f.so + width], "little")))
+            p += (nrec + 1) * pointer
+        f.checksum(addr, p, what)
+        if buf[addr + 5] != self.type:
+            raise ValueError(f"{f.path}: {what} at byte {addr}: record type "
+                             f"{buf[addr + 5]}, not {self.type}")
+        keys = [key(r) for r in recs] if key else None
+        for i in range(nrec + 1):
+            if depth and (key is None or (
+                    (i == 0 or keys[i - 1] <= match) and
+                    (i == nrec or keys[i] >= match))):
+                child, n = children[i]
+                if child is None:
+                    raise ValueError(f"{f.path}: {what} at byte {addr}: a "
+                                     "child with an undefined address")
+                self._node(child, n, depth - 1, key, match, out)
+            if i < nrec and (key is None or keys[i] == match):
+                out.append(recs[i])
+
+
+class _Heap:
+    """A fractal heap (``FRHP``) without an I/O filter pipeline: where each
+    object lies in the file.  Managed objects lie in direct blocks
+    (``FHDB``), found through the doubling table of indirect blocks
+    (``FHIB``); tiny objects in the heap ID itself; huge objects outside
+    the heap, found through the heap's version 2 B-tree unless the heap ID
+    holds their address."""
+
+    def __init__(self, f: _File, addr: int, what: str):
+        self.f, self.what = f, what
+        buf, so, sl = f.buf, f.so, f.sl
+        f.version0(addr, b"FRHP", what)
+        p = addr + 14 + 10 * sl + 2 * so  # the doubling table
+        f.need(addr, p + 12 + 2 * sl + so - addr, what)
+        self.id_len, filters = struct.unpack_from("<HH", buf, addr + 5)
+        if filters:
+            raise NotImplementedError(f"{f.path}: {what}: a fractal heap "
+                                      "with an I/O filter pipeline")
+        self.checked = bool(buf[addr + 9] & 2)  # direct blocks checksummed
+        max_managed, = struct.unpack_from("<I", buf, addr + 10)
+        self.huge_tree = f.offset(addr + 14 + sl)
+        self.width, = struct.unpack_from("<H", buf, p)
+        self.start, max_direct = f.length(p + 2), f.length(p + 2 + sl)
+        heap_bits, = struct.unpack_from("<H", buf, p + 2 + 2 * sl)
+        self.root = f.offset(p + 6 + 2 * sl)
+        self.root_rows, = struct.unpack_from("<H", buf, p + 6 + 2 * sl + so)
+        f.checksum(addr, p + 8 + 2 * sl + so, what)
+        for name, v in (("table width", self.width),
+                        ("starting block size", self.start),
+                        ("largest direct block", max_direct)):
+            if v < 1 or v & (v - 1):
+                raise ValueError(f"{f.path}: {what}: a {name} of {v}")
+        self.first_row_bits = _log2(self.start) + _log2(self.width)
+        self.direct_rows = _log2(max_direct) - _log2(self.start) + 2
+        self.off_size = (heap_bits + 7) // 8
+        self.len_size = min((_log2(max_direct) + 7) // 8,
+                            _enc_size(max_managed))
+        self.prefix = 5 + so + self.off_size + (4 if self.checked else 0)
+        self.blocks = {}  # address -> children (indirect) or True (direct)
+
+    def object(self, p: int) -> tuple:
+        """(position, size) in the file of the object whose heap ID is at
+        ``p``."""
+        f, buf = self.f, self.f.buf
+        what = f"{self.what}'s heap ID"
+        f.need(p, self.id_len, what)
+        kind = buf[p] >> 4
+        if kind == 0:  # managed
+            q = p + 1 + self.off_size
+            offset = int.from_bytes(buf[p + 1:q], "little")
+            size = int.from_bytes(buf[q:q + self.len_size], "little")
+            return self._managed(offset, size), size
+        if kind == 2:  # tiny
+            if self.id_len - 1 <= 16:
+                return p + 1, (buf[p] & 15) + 1
+            return p + 2, ((buf[p] & 15) << 8 | buf[p + 1]) + 1
+        if kind == 1:  # huge
+            if f.so + f.sl <= self.id_len - 1:
+                at, size = f.offset(p + 1), f.length(p + 1 + f.so)
+            else:
+                key = int.from_bytes(buf[p + 1:p + min(self.id_len, 9)],
+                                     "little")
+                at, size = self._huge(key)
+            f.need(at, size, f"{self.what}'s huge object")
+            return at, size
+        raise ValueError(f"{f.path}: {what} at byte {p}: version and type "
+                         f"byte {buf[p]:#04x}")
+
+    def _huge(self, key: int) -> tuple:
+        f = self.f
+        if self.huge_tree is None:
+            raise ValueError(f"{f.path}: {self.what}: a huge object but no "
+                             "B-tree of huge objects")
+        tree = _BTree2(f, self.huge_tree, f"{self.what}'s huge objects")
+        if tree.type != 1:
+            raise NotImplementedError(f"{f.path}: {self.what}: huge objects "
+                                      f"indexed by records of type {tree.type}")
+        found = tree.records(lambda r: f.length(r + f.so + f.sl), key)
+        if len(found) != 1:
+            raise ValueError(f"{f.path}: {self.what}: {len(found)} huge "
+                             f"objects of ID {key}")
+        return f.offset(found[0]), f.length(found[0] + f.so)
+
+    def _managed(self, offset: int, size: int) -> int:
+        """The file position of the managed object at ``offset``: down the
+        doubling table (rows 0 and 1 of blocks of the starting size, each
+        later row twice the one before; rows past ``direct_rows`` hold
+        indirect blocks) to its direct block."""
+        f = self.f
+        addr, rows, base, block = self.root, self.root_rows, 0, self.start
+        while rows:
+            children = self._indirect(addr, rows, base)
+            rel = offset - base
+            if rel < self.start * self.width:
+                row, col = 0, rel // self.start
+            else:
+                row = _log2(rel) - self.first_row_bits + 1
+                col = (rel - (1 << _log2(rel))) // (self.start << (row - 1))
+            block = self.start << max(row - 1, 0)
+            if row >= rows:
+                raise ValueError(f"{f.path}: {self.what}: offset {offset} "
+                                 "lies past the heap's blocks")
+            addr = children[row * self.width + col]
+            base += (0 if row == 0 else (self.start * self.width) << (row - 1)
+                     ) + col * block
+            if row < self.direct_rows:
+                break
+            rows = _log2(block) - self.first_row_bits + 1
+        if addr is None:
+            raise ValueError(f"{f.path}: {self.what}: offset {offset} lies in "
+                             "a block that was never written")
+        self._direct(addr, base, block)
+        at = addr + offset - base
+        if offset - base < self.prefix or offset - base + size > block:
+            raise ValueError(f"{f.path}: {self.what}: an object of {size} "
+                             f"bytes at offset {offset} overruns its block")
+        return at
+
+    def _indirect(self, addr: int, rows: int, base: int) -> list:
+        children = self.blocks.get(addr)
+        if children is None:
+            f = self.f
+            what = f"{self.what}'s indirect block"
+            f.version0(addr, b"FHIB", what)
+            p = addr + 5 + f.so + self.off_size
+            n = rows * self.width
+            f.need(p, n * f.so, what)
+            children = [f.offset(q) for q in range(p, p + n * f.so, f.so)]
+            f.checksum(addr, p + n * f.so, what)
+            self._offset_is(addr + 5 + f.so, base, what)
+            self.blocks[addr] = children
+        return children
+
+    def _direct(self, addr: int, base: int, size: int) -> None:
+        if addr in self.blocks:
+            return
+        f = self.f
+        what = f"{self.what}'s direct block"
+        f.version0(addr, b"FHDB", what)
+        f.need(addr, size, what)
+        self._offset_is(addr + 5 + f.so, base, what)
+        if self.checked:
+            at = addr + self.prefix - 4
+            stored, = struct.unpack_from("<I", f.buf, at)
+            if lookup3(f.buf[addr:at] + bytes(4) +
+                       f.buf[at + 4:addr + size]) != stored:
+                raise ValueError(f"{f.path}: {what} at bytes {addr}-"
+                                 f"{addr + size}: checksum mismatch")
+        self.blocks[addr] = True
+
+    def _offset_is(self, p: int, base: int, what: str) -> None:
+        got = int.from_bytes(self.f.buf[p:p + self.off_size], "little")
+        if got != base:
+            raise ValueError(f"{self.f.path}: {what} at byte {p}: the block "
+                             f"offset {got}, not {base}")
+
+
+class _Dense:
+    """Links or attributes stored densely: messages in a fractal heap,
+    indexed by the lookup3 hash of their names in a version 2 B-tree
+    (records of type 5: hash, heap ID; of type 8: heap ID, message flags,
+    creation order, hash).  ``p`` is the position of the heap's address
+    in the link- or attribute-info message, the name index's follows it.
+    A creation-order index, where there is one, is not read: listing and
+    lookup go through the name index, which is always there."""
+
+    def __init__(self, f: _File, p: int, kind: int, what: str):
+        self.f = f
+        self.heap = _Heap(f, f.offset(p), what + "'s fractal heap")
+        self.tree = _BTree2(f, f.offset(p + f.so), what + "'s name index")
+        if self.tree.type != kind:
+            raise ValueError(f"{f.path}: {what}'s name index holds records "
+                             f"of type {self.tree.type}, not {kind}")
+        self.hash_at, self.id_at = (0, 4) if kind == 5 else (13, 0)
+
+    def messages(self, name: Optional[str] = None) -> list:
+        """(position, size) of each stored message, or of those whose name
+        hashes as ``name`` does."""
+        if name is None:
+            found = self.tree.records()
+        else:
+            buf, at = self.f.buf, self.hash_at
+            found = self.tree.records(
+                lambda r: struct.unpack_from("<I", buf, r + at)[0],
+                lookup3(name.encode("utf-8")))
+        return [self.heap.object(r + self.id_at) for r in found]
+
 
 class Attributes(Mapping):
     """An object's attributes by name, each decoded when it is read: a
@@ -504,16 +830,29 @@ class Attributes(Mapping):
         self._file = obj._file
         self._name = obj.name
         self._where = {}
+        self._dense = None  # a _Dense until all its names are listed
         for mtype, _flags, p, _size in obj._msgs:
             if mtype == _ATTRIBUTE_INFO:
                 q = p + 2 + (2 if self._file.buf[p + 1] & 1 else 0)
                 if self._file.offset(q) is not None:
-                    raise NotImplementedError(
-                        f"{self._file.path}: {obj.name}: dense attribute "
-                        "storage (a fractal heap)")
+                    self._dense = _Dense(self._file, q, 8,
+                                         f"{obj.name}'s attribute storage")
             elif mtype == _ATTRIBUTE:
                 name, parts = self._parse(p)
                 self._where[name] = parts
+
+    def _list(self, name: Optional[str] = None) -> None:
+        """Parse the densely stored attribute messages, or those whose
+        name hashes as ``name`` does, into ``_where``; when all are listed,
+        in name order."""
+        for p, size in self._dense.messages(name):
+            self._file.need(p, size, f"{self._name}'s attribute message")
+            found, parts = self._parse(p)
+            self._where[found] = parts
+        if name is None:
+            self._where = dict(sorted(self._where.items(),
+                                      key=lambda kv: kv[0].encode()))
+            self._dense = None
 
     def _parse(self, p: int) -> tuple:
         buf = self._file.buf
@@ -539,6 +878,8 @@ class Attributes(Mapping):
         return name, (tp, sp, sp + pad(slen))
 
     def __getitem__(self, name: str):
+        if name not in self._where and self._dense is not None:
+            self._list(name)
         if name not in self._where:
             raise KeyError(f"no attribute {name!r} on {self._name}")
         f = self._file
@@ -556,9 +897,13 @@ class Attributes(Mapping):
         return arr[()] if shape == () else arr
 
     def __iter__(self):
+        if self._dense is not None:
+            self._list()
         return iter(self._where)
 
     def __len__(self) -> int:
+        if self._dense is not None:
+            self._list()
         return len(self._where)
 
 
@@ -584,41 +929,64 @@ class Group(_Object):
     """An HDF5 group."""
 
     _links = None
+    _dense = False  # the group's dense link storage once looked for
 
     def _members(self) -> dict:
         """Name -> object header address, in name order."""
         if self._links is None:
             table = [m for m in self._msgs if m[0] == _SYMBOL_TABLE]
-            links = self._symbol_table(table[0][2]) if table else \
-                self._link_messages()
+            if table:
+                links = self._symbol_table(table[0][2])
+            else:
+                dense = self._dense_links()
+                links = dict(self._link(p, n) for p, n in
+                             (dense.messages() if dense else []))
+                links.update(self._link(p, n) for t, _f, p, n in self._msgs
+                             if t == _LINK)
             self._links = dict(sorted(links.items(),
                                       key=lambda kv: kv[0].encode()))
         return self._links
 
-    def _link_messages(self) -> dict:
+    def _member(self, name: str):
+        """The target of the link ``name``, None if there is none; looked
+        up by its hash where the links are stored densely."""
+        dense = self._dense_links() if self._links is None else None
+        if dense is None:
+            return self._members().get(name)
+        for p, n in dense.messages(name):
+            found, target = self._link(p, n)
+            if found == name:
+                return target
+        return None
+
+    def _dense_links(self) -> Optional[_Dense]:
+        if self._dense is False:
+            self._dense = None
+            f = self._file
+            for mtype, _flags, p, _size in self._msgs:
+                if mtype == _LINK_INFO:
+                    q = p + 2 + (8 if f.buf[p + 1] & 1 else 0)
+                    if f.offset(q) is not None:
+                        self._dense = _Dense(f, q, 5, f"{self.name}'s link storage")
+        return self._dense
+
+    def _link(self, p: int, size: int) -> tuple:
+        """(name, target) of the link message of ``size`` bytes at ``p``:
+        the target a header address, or "soft" or "external"."""
         f, buf = self._file, self._file.buf
-        links = {}
-        for mtype, _flags, p, _size in self._msgs:
-            if mtype == _LINK_INFO:
-                q = p + 2 + (8 if buf[p + 1] & 1 else 0)
-                if f.offset(q) is not None:
-                    raise NotImplementedError(
-                        f"{f.path}: {self.name}: dense link storage (a "
-                        "fractal heap)")
-            elif mtype == _LINK:
-                flags = buf[p + 1]
-                q = p + 2
-                kind = 0
-                if flags & 0x08:
-                    kind = buf[q]
-                    q += 1
-                q += (8 if flags & 0x04 else 0) + (1 if flags & 0x10 else 0)
-                width = 1 << (flags & 3)
-                n = int.from_bytes(buf[q:q + width], "little")
-                name = buf[q + width:q + width + n].decode("utf-8")
-                links[name] = f.offset(q + width + n) if kind == 0 else \
-                    ("soft" if kind == 1 else "external")
-        return links
+        f.need(p, size, f"{self.name}'s link message")
+        flags = buf[p + 1]
+        q = p + 2
+        kind = 0
+        if flags & 0x08:
+            kind = buf[q]
+            q += 1
+        q += (8 if flags & 0x04 else 0) + (1 if flags & 0x10 else 0)
+        width = 1 << (flags & 3)
+        n = int.from_bytes(buf[q:q + width], "little")
+        name = buf[q + width:q + width + n].decode("utf-8")
+        return name, f.offset(q + width + n) if kind == 0 else \
+            ("soft" if kind == 1 else "external")
 
     def _symbol_table(self, p: int) -> dict:
         """The members of an old-style group: the leaves of its version 1
@@ -665,7 +1033,7 @@ class Group(_Object):
         for part in path.strip("/").split("/"):
             if not isinstance(obj, Group):
                 raise KeyError(f"{obj.name} is a dataset, not a group")
-            target = obj._members().get(part)
+            target = obj._member(part)
             if target is None:
                 raise KeyError(f"no member {part!r} in {obj.name}")
             name = f"{obj.name.rstrip('/')}/{part}"
@@ -768,14 +1136,12 @@ class Dataset(_Object):
                 q += f.sl + 4
         elif index == 2:
             self._index = "implicit"
-        elif index == 3:
-            self._index = "farray"
-            q += 1
+        elif index in (3, 4, 5):  # their parameters: 1, 5 and 6 bytes
+            self._index = {3: "farray", 4: "earray", 5: "btree2"}[index]
+            q += {3: 1, 4: 5, 5: 6}[index]
         else:
-            raise NotImplementedError(
-                f"{f.path}: {self.name}: the "
-                f"{'extensible-array' if index == 4 else 'version 2 B-tree'}"
-                " chunk index")
+            raise NotImplementedError(f"{f.path}: {self.name}: chunk index "
+                                      f"type {index}")
         self._addr_data = f.offset(q)
 
     _addr_data = None
@@ -877,23 +1243,46 @@ class Dataset(_Object):
             yield (0,) * len(self.shape), self._addr_data, \
                 nbytes if size is None else size, mask
             return
+        if self._addr_data is None:
+            return
+        if self._index == "btree2":
+            yield from self._btree2_chunks(nbytes)
+            return
         grid = [-(-s // c) for s, c in zip(self.shape, self._chunk)]
         maxgrid = [-(-(m if m is not None else s) // c) for m, s, c in
                    zip(self._maxshape, self.shape, self._chunk)]
-        down = np.cumprod([1] + maxgrid[:0:-1])[::-1]
-        entries = None
-        if self._index == "farray" and self._addr_data is not None:
-            entries = self._farray_entries()
-        for scaled in np.ndindex(*grid):
-            i = int(np.dot(scaled, down)) if scaled else 0
-            offsets = tuple(s * c for s, c in zip(scaled, self._chunk))
-            if self._index == "implicit":
-                addr = None if self._addr_data is None else \
-                    self._addr_data + i * nbytes
-                yield offsets, addr, nbytes, 0
-            elif entries is not None and i < len(entries):
-                addr, size, mask = entries[i]
-                yield offsets, addr, nbytes if size is None else size, mask
+        if self._index == "implicit":
+            scaled = np.indices(grid).reshape(len(grid), -1).T
+            down = np.cumprod([1] + maxgrid[:0:-1])[::-1]
+            addr = self._addr_data + (scaled @ down) * nbytes
+            size, mask = np.full(len(addr), nbytes), np.zeros(len(addr), int)
+        else:
+            idx, addr, size, mask = self._farray_entries() \
+                if self._index == "farray" else self._earray_entries()
+            scaled = self._scaled(idx, maxgrid)
+            keep = (scaled < grid).all(axis=1)
+            scaled, addr, mask = scaled[keep], addr[keep], mask[keep]
+            size = np.full(len(addr), nbytes) if size is None else size[keep]
+        for s, a, n, m in zip(scaled.tolist(), addr.tolist(), size.tolist(),
+                              mask.tolist()):
+            yield tuple(i * c for i, c in zip(s, self._chunk)), a, n, m
+
+    def _scaled(self, idx: np.ndarray, maxgrid: list) -> np.ndarray:
+        """The chunk-grid coordinates of linear chunk indices: row-major over
+        the largest grid the dataset can reach, an extensible array's
+        unlimited dimension moved first (``H5VM_swizzle_coords``)."""
+        order = list(range(len(maxgrid)))
+        dims = list(maxgrid)
+        if self._index == "earray":
+            unlimited = self._maxshape.index(None)
+            order.insert(0, order.pop(unlimited))
+            dims = [maxgrid[d] for d in order]
+            dims[0] = int(idx.max(initial=0)) // math.prod(dims[1:]) + 1
+        coords = np.unravel_index(idx, dims)
+        out = np.empty((len(idx), len(order)), np.int64)
+        for k, d in enumerate(order):
+            out[:, d] = coords[k]
+        return out
 
     def _btree_chunks(self):
         f, buf = self._file, self._file.buf
@@ -918,9 +1307,63 @@ class Dataset(_Object):
                 else:
                     yield offsets, child, size, mask
 
-    def _farray_entries(self) -> list:
-        """(address, stored size or None, filter mask) of each chunk of a
-        fixed-array index, in its linear order."""
+    def _btree2_chunks(self, nbytes: int):
+        """The chunks of a version 2 B-tree chunk index: records of type 10
+        (address, scaled offsets) or 11 (address, stored size, filter mask,
+        scaled offsets)."""
+        f, buf = self._file, self._file.buf
+        tree = _BTree2(f, self._addr_data, f"{self.name}'s chunk B-tree")
+        rank = len(self._chunk)
+        if tree.type not in (10, 11):
+            raise ValueError(f"{f.path}: {self.name}'s chunk B-tree holds "
+                             f"records of type {tree.type}")
+        width = tree.rec_size - f.so - 4 - 8 * rank  # the stored size's
+        for r in tree.records():
+            q = r + f.so
+            size, mask = nbytes, 0
+            if tree.type == 11:
+                size = int.from_bytes(buf[q:q + width], "little")
+                mask, = struct.unpack_from("<I", buf, q + width)
+                q += width + 4
+            scaled = struct.unpack_from(f"<{rank}Q", buf, q)
+            yield tuple(s * c for s, c in zip(scaled, self._chunk)), \
+                f.offset(r), size, mask
+
+    def _entries(self, spans: list, esize: int, filtered: bool,
+                 what: str) -> tuple:
+        """(linear index, address, stored size or None, filter mask) arrays
+        of the defined chunk entries of an array index, from spans of
+        (first linear index, position of the entries, count): an entry is
+        the chunk's address and, for filtered chunks, its stored size and
+        filter mask."""
+        f = self._file
+        so = f.so
+        parts = []
+        for start, pos, n in spans:
+            f.need(pos, n * esize, what)
+            raw = np.frombuffer(f.buf, np.uint8, n * esize, pos).reshape(
+                n, esize).astype(np.uint64)
+            addr = _le(raw[:, :so])
+            keep = np.flatnonzero(addr != f.undefined)
+            size = mask = np.zeros(len(keep), np.uint64)
+            if filtered:
+                width = esize - so - 4
+                size = _le(raw[keep, so:so + width])
+                mask = _le(raw[keep, so + width:])
+            parts.append((start + keep, addr[keep] + np.uint64(f.base), size,
+                          mask))
+        if not parts:
+            parts = [(np.zeros(0, np.int64),) + (np.zeros(0, np.uint64),) * 3]
+        idx, addr, size, mask = (np.concatenate(x) for x in zip(*parts))
+        return (idx, addr.astype(np.int64),
+                size.astype(np.int64) if filtered else None,
+                mask.astype(np.int64))
+
+    def _farray_entries(self) -> tuple:
+        """The entries (``_entries``) of a fixed-array index: a header
+        (``FAHD``) and one data block (``FADB``), whose entries are paged
+        past ``2^page_bits``, each page checksummed and present where the
+        block's bitmap says so."""
         f, buf = self._file, self._file.buf
         hdr = self._addr_data
         what = f"{self.name}'s fixed-array header"
@@ -943,30 +1386,102 @@ class Dataset(_Object):
                 n = min(page, count - k * page)
                 if bitmap[k // 8] & (0x80 >> (k % 8)):
                     f.checksum(q, q + n * entry, what + "'s page")
-                    spans.append((q, n))
-                else:
-                    spans.append((None, n))
+                    spans.append((k * page, q, n))
                 q += n * entry + 4
         else:
             f.checksum(block, q + count * entry, what)
-            spans = [(q, count)]
-        out = []
-        for start, n in spans:
-            for e in range(n):
-                if start is None:
-                    out.append((None, None, 0))
+            spans = [(0, q, count)]
+        return self._entries(spans, entry, client == 1, what)
+
+    def _earray_entries(self) -> tuple:
+        """The entries (``_entries``) of an extensible-array index: a header
+        (``EAHD``), an index block (``EAIB``) holding the first entries and
+        the addresses of the first data blocks (``EADB``) and of secondary
+        blocks (``EASB``), each of which holds the addresses of its data
+        blocks.  Super block u has 2^(u/2) data blocks of min * 2^((u+1)/2)
+        entries (``H5EA__hdr_init``); the first 2 log2(min pointers) super
+        blocks' data blocks hang from the index block; a data block of more
+        than 2^page_bits entries is paged, and its secondary block's bitmap
+        says which pages exist.  Every block is checksummed."""
+        f, buf = self._file, self._file.buf
+        so, hdr = f.so, self._addr_data
+        what = f"{self.name}'s extensible-array header"
+        f.version0(hdr, b"EAHD", what)
+        f.need(hdr, 16 + 6 * f.sl + so, what)
+        client, esize, max_bits, first, min_elements, min_pointers, \
+            page_bits = buf[hdr + 5:hdr + 12]
+        max_set = f.length(hdr + 12 + 4 * f.sl)
+        iblock = f.offset(hdr + 12 + 6 * f.sl)
+        f.checksum(hdr, hdr + 12 + 6 * f.sl + so, what)
+        if iblock is None:
+            return self._entries([], esize, client == 1, what)
+        supers = 1 + max_bits - _log2(min_elements)
+        in_iblock = 2 * _log2(min_pointers)
+        ndblocks = 2 * (min_pointers - 1)
+        off_size, page = (max_bits + 7) // 8, 1 << page_bits
+        what = f"{self.name}'s extensible-array index block"
+        f.version0(iblock, b"EAIB", what)
+        p = iblock + 6 + so
+        f.need(p, first * esize + (ndblocks + supers - in_iblock) * so, what)
+        spans = [(0, p, first)]
+        p += first * esize
+        dblocks = [f.offset(p + i * so) for i in range(ndblocks)]
+        p += ndblocks * so
+        sblocks = [f.offset(p + i * so) for i in range(supers - in_iblock)]
+        f.checksum(iblock, p + len(sblocks) * so, what)
+        start = first
+        for u in range(supers):
+            if start >= max_set:
+                break
+            count, n = 1 << (u // 2), min_elements << ((u + 1) // 2)
+            npages = n // page if n > page else 0
+            bitmap = None
+            if u < in_iblock:
+                addrs, dblocks = dblocks[:count], dblocks[count:]
+            else:
+                addrs, bitmap = self._earray_sblock(
+                    sblocks[u - in_iblock], count, -(-npages // 8), off_size)
+            for k, a in enumerate(addrs):
+                if a is None:
                     continue
-                p = start + e * entry
-                addr = f.offset(p)
-                if client == 1:
-                    width = entry - f.so - 4
-                    size = int.from_bytes(buf[p + f.so:p + f.so + width],
-                                          "little")
-                    mask, = struct.unpack_from("<I", buf, p + f.so + width)
-                    out.append((addr, size, mask))
-                else:
-                    out.append((addr, None, 0))
-        return out
+                what = f"{self.name}'s extensible-array data block"
+                f.version0(a, b"EADB", what)
+                q = a + 6 + so + off_size
+                if not npages:
+                    f.checksum(a, q + n * esize, what)
+                    spans.append((start + k * n, q, n))
+                    continue
+                if bitmap is None:
+                    raise NotImplementedError(
+                        f"{f.path}: {what}: a paged data block in the index "
+                        "block")
+                f.checksum(a, q, what)
+                q += 4
+                for j in range(npages):
+                    bit = k * npages + j
+                    if bitmap[bit // 8] & (0x80 >> (bit % 8)):
+                        f.checksum(q, q + page * esize, what + "'s page")
+                        spans.append((start + k * n + j * page, q, page))
+                    q += page * esize + 4
+            start += count * n
+        return self._entries(spans, esize, client == 1, what)
+
+    def _earray_sblock(self, addr: Optional[int], count: int,
+                       bitmap_bytes: int, off_size: int) -> tuple:
+        """(data block addresses, page bitmap or None) of the secondary
+        block at ``addr``; an undefined block has no data blocks."""
+        if addr is None:
+            return [None] * count, None
+        f = self._file
+        what = f"{self.name}'s extensible-array secondary block"
+        f.version0(addr, b"EASB", what)
+        p = addr + 6 + f.so + off_size
+        bitmap_size = count * bitmap_bytes
+        f.need(p, bitmap_size + count * f.so, what)
+        bitmap = f.buf[p:p + bitmap_size] if bitmap_bytes else None
+        p += bitmap_size
+        f.checksum(addr, p + count * f.so, what)
+        return [f.offset(p + i * f.so) for i in range(count)], bitmap
 
     def _unfilter(self, data: bytes, mask: int, what: str) -> bytes:
         path = self._file.path
@@ -988,6 +1503,8 @@ class Dataset(_Object):
                     raise ValueError(f"{path}: {what}: fletcher32 checksum "
                                      "mismatch")
                 data = data[:-4]
+            elif fid == LZF_FILTER:
+                data = _unlzf(data, f"{path}: {what}")
             elif fid == VBZ_FILTER:
                 raise NotImplementedError(
                     f"{path}: {self.name}: the VBZ compression filter (HDF5 "

@@ -19,7 +19,12 @@ The files (about 250 bases each):
   headers, link messages, a layout version 4 fixed-array chunk index), at
   most 8 attributes an object;
 - ``no_alignment.fast5``: no ``Alignment`` group (the reader returns
-  None).
+  None);
+- ``tombo_latest.fast5``: ``tombo_like.fast5``'s read, from the same
+  draws, written with ``libver="latest"``, and seven more attribute-only
+  groups under ``Analyses``: ten links there and the ten ``Alignment``
+  and 40 ``tracking_id`` attributes are stored densely (fractal heaps and
+  version 2 B-trees), and ``Signal`` has an extensible-array chunk index.
 """
 
 import dataclasses
@@ -35,7 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
 from deepsignal_tpu.io.fast5 import (read_resquiggled_fast5,  # noqa: E402
                                      write_synthetic_fast5)
 
-FILES = ("synthetic", "tombo_like", "latest", "no_alignment")
+FILES = ("synthetic", "tombo_like", "latest", "no_alignment",
+         "tombo_latest")
 FIELDS = ("read_id", "raw_signal", "event_starts", "event_lengths", "seq",
           "read_strand", "align_strand", "chrom", "chrom_start", "scaling",
           "offset")
@@ -91,9 +97,9 @@ def write_synthetic(path, rng):
                           "chr2", 1234, "-", read_start_rel_to_raw=4)
 
 
-def write_tombo_like(path, rng):
+def write_tombo_like(path, rng, libver="earliest"):
     seq, lengths, starts, raw = _read(rng)
-    with h5py.File(path, "w") as h5:
+    with h5py.File(path, "w", libver=libver) as h5:
         h5.attrs["file_version"] = np.bytes_(b"2.0")
         rg = h5.create_group("Raw/Reads/Read_1234")
         rg.create_dataset("Signal", data=raw, chunks=(1024,), maxshape=(None,),
@@ -135,6 +141,14 @@ def write_tombo_like(path, rng):
         og.create_dataset("Events", data=other, compression="gzip")
         og["Events"].attrs["read_start_rel_to_raw"] = np.int64(0)
         _alignment(og, "chrX", 9, "-", 100, ten=True)
+
+
+def write_tombo_latest(path, rng):
+    write_tombo_like(path, rng, libver="latest")
+    with h5py.File(path, "a", libver="latest") as h5:
+        for i in range(7):
+            h5.create_group(f"Analyses/Segmentation_{i:03d}").attrs[
+                "name"] = "segmenter"
 
 
 def write_latest(path, rng):
@@ -182,9 +196,13 @@ def main():
     rng = np.random.default_rng(20261017)
     paths = {}
     for name, write in zip(FILES, (write_synthetic, write_tombo_like,
-                                   write_latest, write_no_alignment)):
+                                   write_latest, write_no_alignment,
+                                   write_tombo_latest)):
+        if name == "tombo_like":  # tombo_latest draws what it draws
+            same = np.random.default_rng()
+            same.bit_generator.state = rng.bit_generator.state
         paths[name] = os.path.join(HERE, f"{name}.fast5")
-        write(paths[name], rng)
+        write(paths[name], same if name == "tombo_latest" else rng)
     np.savez(os.path.join(HERE, "expected.npz"), **expected_arrays(paths))
     for name, path in paths.items():
         print(f"{path}: {os.path.getsize(path)} bytes")

@@ -7,7 +7,10 @@ Run from the root of the repository:
 It writes one seeded read of ``--bases`` bases (the draw of chip_smoke.py's
 reads) twice, with the port's writer and with the JAX package's (h5py),
 and prints each reader's median µs per read on each file, and a plain
-``open().read()`` of the file for scale.
+``open().read()`` of the file for scale.  Then the same for the committed
+fixtures ``tombo_like.fast5`` and ``tombo_latest.fast5`` (one read in
+HDF5's earliest and latest file formats), with the ratio of the port's
+times on the two.
 """
 
 import argparse
@@ -53,16 +56,28 @@ def main():
                              (jax_fast5.write_synthetic_fast5, "h5py-written")):
             path = os.path.join(d, f"{name}.fast5")
             writer(path, **kw)
+            report(name, path, args.reps)
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = [report(name, os.path.join(here, f"{name}.fast5"), args.reps)
+            for name in ("tombo_like", "tombo_latest")]
+    print(f"tombo_latest / tombo_like through the port: "
+          f"{port[1] / port[0]:.2f}")
 
-            def plain(path=path):
-                with open(path, "rb") as f:
-                    f.read()
 
-            print(f"{name} file, {os.path.getsize(path)} bytes: "
-                  f"port reader {median_us(lambda: fast5.read_resquiggled_fast5(path), args.reps):.1f} µs, "  # noqa: E501
-                  f"h5py reader {median_us(lambda: jax_fast5.read_resquiggled_fast5(path), args.reps):.1f} µs, "  # noqa: E501
-                  f"open().read() {median_us(plain, args.reps):.1f} µs "
-                  f"(median of {args.reps})")
+def report(name: str, path: str, reps: int) -> float:
+    """Print both readers' and ``open().read()``'s median µs on the file at
+    ``path``; return the port's."""
+    def plain():
+        with open(path, "rb") as f:
+            f.read()
+
+    port = median_us(lambda: fast5.read_resquiggled_fast5(path), reps)
+    print(f"{name} file, {os.path.getsize(path)} bytes: "
+          f"port reader {port:.1f} µs, "
+          f"h5py reader {median_us(lambda: jax_fast5.read_resquiggled_fast5(path), reps):.1f} µs, "  # noqa: E501
+          f"open().read() {median_us(plain, reps):.1f} µs "
+          f"(median of {reps})")
+    return port
 
 
 if __name__ == "__main__":

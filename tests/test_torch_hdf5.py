@@ -7,6 +7,8 @@ package's reader reads them."""
 
 import ctypes
 import dataclasses
+import importlib.util
+import math
 import os
 import struct
 import zlib
@@ -20,7 +22,8 @@ from deepsignal_tpu_torch.io import fast5, hdf5
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "fast5")
-FIXTURE_FILES = ("synthetic", "tombo_like", "latest", "no_alignment")
+FIXTURE_FILES = ("synthetic", "tombo_like", "latest", "no_alignment",
+                 "tombo_latest")
 STRAND = "Analyses/RawGenomeCorrected_000/BaseCalled_template"
 
 GRID_DTYPES = ("<i2", "<i4", "<u4", "<f4", "<f8", ">i2", ">f8")
@@ -74,6 +77,16 @@ def _same(got, want):
         assert got == want
 
 
+def _name_order(group):
+    """h5py's members of ``group`` through its name index in increasing
+    order, the order of ``H5Gget_objname_by_idx`` (which rebuilds the list
+    on each call)."""
+    names = []
+    group.id.links.iterate(names.append, idx_type=h5py.h5.INDEX_NAME,
+                           order=h5py.h5.ITER_INC)
+    return [n.decode() for n in names]
+
+
 def _same_file(path):
     """Every dataset and attribute of the file at ``path`` reads through the
     port as through h5py.  Returns the number of objects compared."""
@@ -88,9 +101,7 @@ def _same_file(path):
             got = mine.read()
             _same(got if obj.shape else got[()], obj[()])
         else:
-            assert mine.members() == [
-                obj.id.get_objname_by_idx(i).decode()
-                for i in range(len(obj))]
+            assert mine.members() == _name_order(obj)
         assert sorted(mine.attrs) == sorted(obj.attrs)
         for key in obj.attrs:
             _same(mine.attrs[key], obj.attrs[key])
@@ -337,6 +348,454 @@ def test_group_members_in_name_order(tmp_path, libver, members):
 
 
 # --------------------------------------------------------------------------
+# HDF5 1.8's dense storage and 1.10's chunk indexes
+
+NEW_FORMATS = ("v108", "v110", "latest")
+# pairs of names whose lookup3 hashes are equal (a search over "m%07d")
+COLLIDING = (("m0191687", "m0265875"), ("m0056596", "m0385332"))
+
+
+def _attribute_value(rng, i, strings):
+    """A varied attribute by its index: an integer, a string of the given
+    kind, a float array, a compound, an array of strings."""
+    kind = i % 5
+    if kind == 0:
+        return np.int64(i)
+    if kind == 1:
+        return f"value-{i}" if strings == "variable" else \
+            np.bytes_(f"value-{i}".encode())
+    if kind == 2:
+        return rng.normal(size=3).astype("<f8")
+    if kind == 3:
+        rec = np.zeros((), dtype=TOMBO_EVENTS)
+        rec["start"], rec["base"] = i, b"C"
+        return rec
+    return np.array([f"s{i}", "t"], dtype=h5py.string_dtype()) \
+        if strings == "variable" else np.array([b"s%d" % i, b"t"])
+
+
+def _read_all(path):
+    """Everything in the file through the port alone: every member, every
+    attribute and every dataset."""
+    def visit(obj):
+        for key in obj.attrs:
+            obj.attrs[key]
+        if isinstance(obj, hdf5.Dataset):
+            obj.read()
+            return
+        for name in obj.members():
+            visit(obj._get(name))
+
+    visit(hdf5.open_file(str(path)))
+
+
+@pytest.mark.parametrize("where", ["group", "dataset"])
+@pytest.mark.parametrize("count,strings", [
+    (9, "variable"), (9, "fixed"), (40, "variable"), (40, "fixed"),
+    (300, "variable"), (300, "fixed"), (2000, "variable")])
+@pytest.mark.parametrize("libver", NEW_FORMATS)
+def test_dense_attributes_read_as_h5py_reads_them(tmp_path, libver, count,
+                                                  strings, where):
+    """Past 8 attributes an object's attributes are stored densely; 40 fill
+    more than the heap's first block (an indirect root block); 300 and
+    2,000 give the name index one and two levels of internal nodes."""
+    rng = np.random.default_rng(count)
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        obj = h5.create_group("o") if where == "group" else \
+            h5.create_dataset("o", data=np.arange(5, dtype="<i2"))
+        for i in rng.permutation(count):
+            obj.attrs[f"attr_{i:04d}"] = _attribute_value(rng, i, strings)
+    attrs = hdf5.open_file(str(path))._get("o").attrs
+    assert attrs._dense is not None
+    assert attrs["attr_0001"] == ("value-1" if strings == "variable"
+                                  else np.bytes_(b"value-1"))
+    with pytest.raises(KeyError):
+        attrs["attr_9999"]
+    assert list(attrs) == [f"attr_{i:04d}" for i in range(count)]
+    assert len(attrs) == count
+    assert _same_file(path) == 1
+
+
+@pytest.mark.parametrize("libver", NEW_FORMATS)
+def test_a_large_attribute_is_a_huge_heap_object(tmp_path, libver):
+    """An attribute of 160 KB does not fit an object header, so HDF5 stores
+    the attributes densely even among few, and the message, past the
+    heap's largest managed object, as a huge object found through the
+    heap's own version 2 B-tree (records of type 1)."""
+    big = np.arange(20000, dtype="<f8")
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        d = h5.create_dataset("d", data=np.arange(3, dtype="<i4"))
+        d.attrs["small"] = np.int32(7)
+        d.attrs["big"] = big
+    trees = []
+    real = hdf5._BTree2.__init__
+
+    def spy(self, *args):
+        real(self, *args)
+        trees.append(self.type)
+
+    hdf5._BTree2.__init__ = spy
+    try:
+        attrs = hdf5.open_file(str(path)).dataset("d").attrs
+        np.testing.assert_array_equal(attrs["big"], big)
+    finally:
+        hdf5._BTree2.__init__ = real
+    assert trees == [8, 1]
+    assert _same_file(path) == 1
+
+
+@pytest.mark.parametrize("libver", NEW_FORMATS)
+def test_a_heap_with_indirect_child_blocks(tmp_path, libver):
+    """600 attributes of 1 KB (~600 KB) outgrow the root indirect block's
+    direct rows (up to 64 KB blocks), so the heap has child indirect
+    blocks."""
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        g = h5.create_group("g")
+        for i in range(600):
+            g.attrs[f"a{i:03d}"] = np.full(128, i, "<f8")
+    assert path.read_bytes().count(b"FHIB") > 1
+    attrs = hdf5.open_file(str(path)).group("g").attrs
+    for i in (0, 299, 599):
+        np.testing.assert_array_equal(attrs[f"a{i:03d}"], np.full(128, i))
+    assert _same_file(path) == 1
+
+
+@pytest.mark.parametrize("track_order", [False, True], ids=["name", "order"])
+@pytest.mark.parametrize("members", [9, 64, 1000, 3000])
+@pytest.mark.parametrize("libver", NEW_FORMATS)
+def test_dense_links_read_as_h5py_reads_them(tmp_path, libver, members,
+                                             track_order):
+    """Past 8 links a group's links are stored densely; 64, 1,000 and
+    3,000 give the name index one and two levels of internal nodes.  Each
+    link is a hard link to one of 8 datasets (holding its number modulo
+    8); members list in name order whatever the creation order, and each
+    is looked up by its name's hash."""
+    rng = np.random.default_rng(members)
+    order = rng.permutation(members)
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        targets = [h5.create_dataset(f"t{k}", data=np.int16(k))
+                   for k in range(8)]
+        g = h5.create_group("g", track_order=track_order)
+        for i in order:
+            g[f"Read_{i}"] = targets[i % 8]
+        want = _name_order(g)
+    root = hdf5.open_file(str(path))
+    g = root.group("g")
+    assert g._dense_links() is not None
+    for i in order[:50]:
+        assert root.dataset(f"g/Read_{i}").read()[()] == i % 8
+    with pytest.raises(KeyError, match="no member 'Read_x'"):
+        g.dataset("Read_x")
+    assert g.members() == want == sorted((f"Read_{i}" for i in order),
+                                         key=str.encode)
+    assert _same_file(path) == 9
+
+
+@pytest.mark.parametrize("libver", NEW_FORMATS)
+def test_names_whose_hashes_collide(tmp_path, libver):
+    """Two names with one lookup3 hash: each is found by name, as a link and
+    as an attribute, and a name that shares a present name's hash but is
+    absent is not."""
+    (a, b), (c, d) = COLLIDING
+    assert hdf5.lookup3(a.encode()) == hdf5.lookup3(b.encode())
+    assert hdf5.lookup3(c.encode()) == hdf5.lookup3(d.encode())
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        g = h5.create_group("g")
+        for k, name in enumerate((a, b, c) + tuple(f"x{i}" for i in
+                                                   range(10))):
+            g.create_dataset(name, data=np.int32(k))
+            g.attrs[name] = np.int32(-k)
+    g = hdf5.open_file(str(path)).group("g")
+    assert g._dense_links() is not None and g.attrs._dense is not None
+    assert [g.dataset(n).read()[()] for n in (a, b, c)] == [0, 1, 2]
+    assert [g.attrs[n] for n in (a, b, c)] == [0, -1, -2]
+    with pytest.raises(KeyError):
+        g.dataset(d)
+    with pytest.raises(KeyError):
+        g.attrs[d]
+    assert _same_file(path) == 14
+
+
+def test_tiny_heap_objects_are_read_from_the_heap_id(tmp_path):
+    """A tiny object lies in its heap ID (type 2, its length less one in
+    the low 4 bits of the first byte).  HDF5 stores no link or attribute
+    message that small, so the heap of a real file reads IDs appended to
+    the file's bytes."""
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver="latest") as h5:
+        for i in range(10):
+            h5.attrs[f"a{i}"] = i
+    raw = path.read_bytes()
+    f = hdf5._File(raw + b"\x23abcd" + bytes(3) + b"\x20Z" + bytes(6),
+                   str(path))
+    heap = f.object(f.root_address, "/").attrs._dense.heap
+    assert heap.id_len == 8
+    assert heap.object(len(raw)) == (len(raw) + 1, 4)
+    assert heap.object(len(raw) + 8) == (len(raw) + 9, 1)
+    assert f.buf[len(raw) + 1:len(raw) + 5] == b"abcd"
+
+
+def _signal(path, libver, n, chunk, filters, holes=(), fill=-1):
+    """A ``Signal``-like 1-D int16 dataset of ``n`` samples at maxshape
+    (None,) in chunks of ``chunk``; the spans in ``holes`` never written.
+    Returns the values h5py reads."""
+    data = (np.arange(n) % 30011 - 15000).astype("<i2")
+    with h5py.File(path, "w", libver=libver) as h5:
+        d = h5.create_dataset("Signal", shape=(n,), maxshape=(None,),
+                              chunks=(chunk,), dtype="<i2", fillvalue=fill,
+                              compression="gzip" if filters else None,
+                              shuffle=bool(filters),
+                              fletcher32=bool(filters))
+        lo = 0
+        for start, stop in sorted(holes) + [(n, n)]:
+            if lo < start:
+                d[lo:start] = data[lo:start]
+            lo = stop
+        want = d[()]
+    return want
+
+
+# chunk counts: 3 end in the index block (4 entries), 50 in its data
+# blocks (240 more), 1,000 in secondary blocks; 131,100 reach the paged
+# data blocks (past 131,060 chunks, whose blocks exceed 1,024 entries),
+# written only in spans, two of them in two pages of one data block
+EA_CASES = {"index_block": (3 * 700 - 77, 700, ()),
+            "data_blocks": (50 * 60 - 13, 60, [(1200, 1500)]),
+            "secondary_blocks": (1000 * 8 - 3, 8, [(2000, 6000)]),
+            "paged": (131100, 1, [(10, 5000), (5010, 131070),
+                                  (131100, 132100)])}
+
+
+@pytest.mark.parametrize("filters", [False, True],
+                         ids=["plain", "gzip-shuffle-fletcher32"])
+@pytest.mark.parametrize("case", list(EA_CASES))
+@pytest.mark.parametrize("libver", ["v110", "latest"])
+def test_extensible_array_chunk_index(tmp_path, libver, case, filters):
+    """The extensible-array index of a dataset with one unlimited
+    dimension, its last chunk partial, with chunks never written (the fill
+    value)."""
+    n, chunk, holes = EA_CASES[case]
+    if case == "paged":  # one more span, in the first data block's 2nd page
+        n, holes = 132130, holes[:2] + [(131100, 132089), (132119, 132130)]
+    path = tmp_path / "x.h5"
+    want = _signal(path, libver, n, chunk, filters, holes)
+    d = hdf5.open_file(str(path)).dataset("Signal")
+    assert d._index == "earray"
+    got = d.read()
+    assert got.dtype == np.dtype("<i2")
+    np.testing.assert_array_equal(got, want)
+    if holes:
+        assert (want[holes[0][0]:holes[0][1]] == -1).all()
+    signatures = {s: path.read_bytes().count(s)
+                  for s in (b"EAIB", b"EASB", b"EADB")}
+    assert signatures == {
+        "index_block": {b"EAIB": 1, b"EASB": 0, b"EADB": 0},
+        "data_blocks": {b"EAIB": 1, b"EASB": 0, b"EADB": 2},
+        "secondary_blocks": {b"EAIB": 1, b"EASB": 2, b"EADB": 10},
+        "paged": {b"EAIB": 1, b"EASB": 2, b"EADB": 3}}[case]
+    assert _same_file(path) == 1
+
+
+@pytest.mark.parametrize("libver", ["v110", "latest"])
+def test_extensible_array_with_a_later_unlimited_dimension(tmp_path, libver):
+    """With the unlimited dimension second, HDF5 numbers the chunks with it
+    moved first (its swizzle)."""
+    data = np.arange(23 * 41, dtype="<f8").reshape(23, 41)
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        h5.create_dataset("d", data=data, chunks=(4, 3), maxshape=(30, None))
+    d = hdf5.open_file(str(path)).dataset("d")
+    assert d._index == "earray"
+    np.testing.assert_array_equal(d.read(), data)
+    assert _same_file(path) == 1
+
+
+@pytest.mark.parametrize("filters", [False, True], ids=["plain", "gzip"])
+@pytest.mark.parametrize("shape,chunks,depth", [
+    ((10, 10), (3, 3), 0), ((60, 70), (3, 2), 1), ((150, 150), (1, 1), 2)],
+    ids=["depth0", "depth1", "depth2"])
+@pytest.mark.parametrize("libver", ["v110", "latest"])
+def test_version_2_btree_chunk_index(tmp_path, libver, shape, chunks, depth,
+                                     filters):
+    """Two unlimited dimensions give the version 2 B-tree chunk index
+    (records of type 10, or 11 with filters), at depths 0 to 2, with
+    chunks never written."""
+    data = (np.arange(math.prod(shape)) % 1000).astype("<i2").reshape(shape)
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        d = h5.create_dataset("d", shape=shape, dtype="<i2", chunks=chunks,
+                              maxshape=(None, None), fillvalue=9,
+                              compression="gzip" if filters else None)
+        d[:, :shape[1] // 2] = data[:, :shape[1] // 2]
+        d[:shape[0] // 3] = data[:shape[0] // 3]
+        want = d[()]
+    d = hdf5.open_file(str(path)).dataset("d")
+    assert d._index == "btree2"
+    depths = []
+    real = hdf5._BTree2.__init__
+
+    def spy(self, *args):
+        real(self, *args)
+        depths.append(self.depth)
+
+    hdf5._BTree2.__init__ = spy
+    try:
+        np.testing.assert_array_equal(d.read(), want)
+    finally:
+        hdf5._BTree2.__init__ = real
+    assert depths == [depth]
+    assert (want == 9).any()
+    assert _same_file(path) == 1
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+def test_lzf_reads_as_h5py_reads_it(tmp_path, libver, shuffle):
+    """h5py's LZF filter (32000); a chunk of noise that LZF cannot shrink
+    is stored as it is, its filter mask bit set."""
+    rng = np.random.default_rng(32000)
+    smooth = (np.arange(20000) // 7 % 900).astype("<i2")
+    noise = rng.integers(0, 2 ** 63, 700, dtype="<i8")
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        h5.create_dataset("smooth", data=smooth, chunks=(3000,),
+                          compression="lzf", shuffle=shuffle)
+        h5.create_dataset("noise", data=noise, chunks=(100,),
+                          compression="lzf", shuffle=shuffle)
+        h5.create_dataset("events", data=_events_for_lzf(rng),
+                          compression="lzf", shuffle=shuffle)
+    root = hdf5.open_file(str(path))
+    np.testing.assert_array_equal(root.dataset("smooth").read(), smooth)
+    np.testing.assert_array_equal(root.dataset("noise").read(), noise)
+    assert _same_file(path) == 3
+
+
+def _events_for_lzf(rng):
+    ev = np.zeros(500, dtype=TOMBO_EVENTS)
+    ev["norm_mean"] = rng.normal(0, 1, 500)
+    ev["start"] = np.arange(500) * 9
+    ev["length"] = 9
+    ev["base"] = rng.choice(list(b"ACGT"), 500).astype("u1").view("S1")
+    return ev
+
+
+def test_lzf_errors_raise():
+    with pytest.raises(ValueError, match="LZF: a back-reference before"):
+        hdf5._unlzf(b"\x00a\x20\x05", "x")
+    with pytest.raises(ValueError, match="LZF: a literal run past"):
+        hdf5._unlzf(b"\x05ab", "x")
+    assert hdf5._unlzf(b"\x00a\xe0\x03\x00", "x") == b"a" * 13
+
+
+def _make_fixtures():
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", os.path.join(FIXTURES, "make_fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("libver", ("earliest",) + NEW_FORMATS)
+def test_tombo_like_reads_as_the_jax_reader_reads_it(tmp_path, libver):
+    """The MinKNOW- and tombo-like layout of the fixtures (``Signal`` at
+    maxshape (None,), tombo's ten ``Alignment`` attributes, 40 of
+    ``tracking_id``) in each file format, with ten links under
+    ``Analyses`` in the newer ones, read field for field and dtype for
+    dtype as the JAX package's reader reads it."""
+    fixtures = _make_fixtures()
+    path = tmp_path / "x.fast5"
+    fixtures.write_tombo_like(str(path), np.random.default_rng(11), libver)
+    if libver != "earliest":
+        with h5py.File(path, "a", libver=libver) as h5:
+            for i in range(7):
+                h5.create_group(f"Analyses/Segmentation_{i:03d}")
+    want = _jax_read(path)
+    assert want.read_id == "0a1b2c3d-tombo-like"
+    _same_read(fast5.read_resquiggled_fast5(str(path)), want)
+    assert _same_file(path) > 10
+    root = hdf5.open_file(str(path))
+    dense = [root.group("UniqueGlobalKey/tracking_id").attrs._dense,
+             root.group(STRAND + "/Alignment").attrs._dense,
+             root.group("Analyses")._dense_links()]
+    assert [x is not None for x in dense] == [libver != "earliest"] * 3
+    assert root.dataset("Raw/Reads/Read_1234/Signal")._index == \
+        {"earliest": "btree", "v108": "btree"}.get(libver, "earray")
+
+
+def _new_structures_file(path):
+    """One file of every new structure: dense links (64: an indirect heap
+    root, a B-tree of depth 1), dense attributes, an extensible array with
+    secondary and paged data blocks."""
+    _signal(path, "latest", 132130, 1, False,
+            [(10, 131070), (131100, 132089)])
+    with h5py.File(path, "a", libver="latest") as h5:
+        g = h5.create_group("g")
+        for i in range(64):
+            g.create_group(f"member_{i:02d}")
+        for i in range(40):
+            g.attrs[f"a{i}"] = np.int64(i)
+
+
+@pytest.mark.parametrize("what", [
+    "BTHD", "BTIN", "BTLF", "FRHP", "FHIB", "FHDB", "EAHD", "EAIB", "EASB",
+    "EADB", "EADB page"])
+def test_corrupt_checksums_raise(tmp_path, what):
+    """A byte flipped inside each checksummed structure (in a field the
+    reader does not use before the checksum) raises a ValueError."""
+    path = tmp_path / "x.h5"
+    _new_structures_file(path)
+    regions = []
+    real = hdf5._File.checksum
+
+    def spy(self, start, end, label):
+        regions.append((self.buf[start:start + 4], label, start, end))
+        return real(self, start, end, label)
+
+    hdf5._File.checksum = spy
+    try:
+        _read_all(path)
+    finally:
+        hdf5._File.checksum = real
+    raw = bytearray(path.read_bytes())
+    if what == "FHDB":
+        at = raw.index(b"FHDB")
+        start, end = at, at + 512  # the heap's starting block size
+    elif what == "EADB page":
+        start, end = next((s, e) for _, label, s, e in regions
+                          if label.endswith("'s page"))
+    else:
+        start, end = next((s, e) for sig, _, s, e in regions
+                          if sig == what.encode())
+    raw[start + (end - start) * 2 // 3] ^= 0x40
+    path.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="checksum mismatch"):
+        _read_all(path)
+
+
+def test_a_heap_with_a_filter_pipeline_is_refused(tmp_path):
+    """A fractal heap whose I/O filter length is set (rewritten in place,
+    its checksum recomputed)."""
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver="latest") as h5:
+        for i in range(10):
+            h5.attrs[f"a{i}"] = i
+    raw = bytearray(path.read_bytes())
+    at = raw.index(b"FRHP")
+    raw[at + 7] = 1
+    end = at + 14 + 10 * 8 + 2 * 8 + 8 + 2 * 8 + 8
+    struct.pack_into("<I", raw, end, hdf5.lookup3(bytes(raw[at:end])))
+    path.write_bytes(bytes(raw))
+    with pytest.raises(NotImplementedError, match="fractal heap with an I/O "
+                       "filter pipeline"):
+        hdf5.open_file(str(path)).attrs["a1"]
+
+
+# --------------------------------------------------------------------------
 # the committed fixtures
 
 
@@ -482,23 +941,30 @@ def _message(path, name, mtype):
 
 
 def test_dense_attribute_storage_is_refused(tmp_path):
+    """Dense attribute storage (ten attributes in the latest format) reads
+    as h5py reads it."""
     path = tmp_path / "x.h5"
     with h5py.File(path, "w", libver="latest") as h5:
         g = h5.create_group("g")
         for i in range(10):
             g.attrs[f"a{i}"] = i
     g = hdf5.open_file(str(path)).group("g")
-    with pytest.raises(NotImplementedError, match="dense attribute storage"):
-        g.attrs["a1"]
+    assert g.attrs._dense is not None
+    assert g.attrs["a1"] == 1
+    assert _same_file(path) == 1
 
 
 def test_dense_link_storage_is_refused(tmp_path):
+    """Dense link storage (20 links in the latest format) reads as h5py
+    reads it."""
     path = tmp_path / "x.h5"
     with h5py.File(path, "w", libver="latest") as h5:
         for i in range(20):
             h5.create_group(f"g{i}")
-    with pytest.raises(NotImplementedError, match="dense link storage"):
-        hdf5.open_file(str(path)).members()
+    root = hdf5.open_file(str(path))
+    assert root._dense_links() is not None
+    assert root.members() == sorted(f"g{i}" for i in range(20))
+    assert _same_file(path) == 20
 
 
 @pytest.mark.parametrize("fid,match", [
@@ -521,13 +987,19 @@ def test_other_filters_are_refused(tmp_path, fid, match):
     ((None,), "extensible-array chunk index"),
     ((None, None), "version 2 B-tree chunk index")])
 def test_other_chunk_indexes_are_refused(tmp_path, maxshape, match):
+    """The layout version 4 chunk indexes of unlimited datasets (``match``
+    names which) read as h5py reads them."""
     path = tmp_path / "x.h5"
     shape = (10,) * len(maxshape)
+    data = np.arange(10 ** len(shape), dtype="<f8").reshape(shape)
     with h5py.File(path, "w", libver="latest") as h5:
-        h5.create_dataset("d", data=np.ones(shape), chunks=(3,) * len(shape),
+        h5.create_dataset("d", data=data, chunks=(3,) * len(shape),
                           maxshape=maxshape)
-    with pytest.raises(NotImplementedError, match=match):
-        hdf5.open_file(str(path)).dataset("d")
+    d = hdf5.open_file(str(path)).dataset("d")
+    assert d._index == {"extensible-array chunk index": "earray",
+                        "version 2 B-tree chunk index": "btree2"}[match]
+    np.testing.assert_array_equal(d.read(), data)
+    assert _same_file(path) == 1
 
 
 def test_external_and_virtual_storage_are_refused(tmp_path):
