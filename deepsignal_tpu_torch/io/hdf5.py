@@ -570,6 +570,7 @@ class _BTree2:
     def __init__(self, f: _File, addr: int, what: str):
         self.f, self.what = f, what
         f.version0(addr, b"BTHD", what)
+        f.need(addr, 22 + f.so + f.sl, what)
         self.type = f.buf[addr + 5]
         node_size, self.rec_size, self.depth = struct.unpack_from(
             "<IHH", f.buf, addr + 6)
@@ -648,6 +649,9 @@ class _Heap:
         p = addr + 14 + 10 * sl + 2 * so  # the doubling table
         f.need(addr, p + 12 + 2 * sl + so - addr, what)
         self.id_len, filters = struct.unpack_from("<HH", buf, addr + 5)
+        # a filtered heap adds its root block's size, a mask and the pipeline
+        f.checksum(addr, p + 8 + 2 * sl + so + (
+            sl + 4 + filters if filters else 0), what)
         if filters:
             raise NotImplementedError(f"{f.path}: {what}: a fractal heap "
                                       "with an I/O filter pipeline")
@@ -659,7 +663,6 @@ class _Heap:
         heap_bits, = struct.unpack_from("<H", buf, p + 2 + 2 * sl)
         self.root = f.offset(p + 6 + 2 * sl)
         self.root_rows, = struct.unpack_from("<H", buf, p + 6 + 2 * sl + so)
-        f.checksum(addr, p + 8 + 2 * sl + so, what)
         for name, v in (("table width", self.width),
                         ("starting block size", self.start),
                         ("largest direct block", max_direct)):
@@ -708,8 +711,9 @@ class _Heap:
                              "B-tree of huge objects")
         tree = _BTree2(f, self.huge_tree, f"{self.what}'s huge objects")
         if tree.type != 1:
-            raise NotImplementedError(f"{f.path}: {self.what}: huge objects "
-                                      f"indexed by records of type {tree.type}")
+            raise NotImplementedError(
+                f"{f.path}: {self.what}: huge objects indexed by records of "
+                f"type {tree.type}")
         found = tree.records(lambda r: f.length(r + f.so + f.sl), key)
         if len(found) != 1:
             raise ValueError(f"{f.path}: {self.what}: {len(found)} huge "
@@ -967,7 +971,8 @@ class Group(_Object):
                 if mtype == _LINK_INFO:
                     q = p + 2 + (8 if f.buf[p + 1] & 1 else 0)
                     if f.offset(q) is not None:
-                        self._dense = _Dense(f, q, 5, f"{self.name}'s link storage")
+                        self._dense = _Dense(f, q, 5,
+                                             f"{self.name}'s link storage")
         return self._dense
 
     def _link(self, p: int, size: int) -> tuple:

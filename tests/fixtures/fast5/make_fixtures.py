@@ -143,9 +143,9 @@ def write_tombo_like(path, rng, libver="earliest"):
         _alignment(og, "chrX", 9, "-", 100, ten=True)
 
 
-def write_tombo_latest(path, rng):
-    write_tombo_like(path, rng, libver="latest")
-    with h5py.File(path, "a", libver="latest") as h5:
+def write_tombo_latest(path, rng, libver="latest"):
+    write_tombo_like(path, rng, libver)
+    with h5py.File(path, "a", libver=libver) as h5:
         for i in range(7):
             h5.create_group(f"Analyses/Segmentation_{i:03d}").attrs[
                 "name"] = "segmenter"

@@ -418,7 +418,8 @@ def test_dense_attributes_read_as_h5py_reads_them(tmp_path, libver, count,
 
 
 @pytest.mark.parametrize("libver", NEW_FORMATS)
-def test_a_large_attribute_is_a_huge_heap_object(tmp_path, libver):
+def test_a_large_attribute_is_a_huge_heap_object(tmp_path, monkeypatch,
+                                                libver):
     """An attribute of 160 KB does not fit an object header, so HDF5 stores
     the attributes densely even among few, and the message, past the
     heap's largest managed object, as a huge object found through the
@@ -436,12 +437,9 @@ def test_a_large_attribute_is_a_huge_heap_object(tmp_path, libver):
         real(self, *args)
         trees.append(self.type)
 
-    hdf5._BTree2.__init__ = spy
-    try:
-        attrs = hdf5.open_file(str(path)).dataset("d").attrs
-        np.testing.assert_array_equal(attrs["big"], big)
-    finally:
-        hdf5._BTree2.__init__ = real
+    monkeypatch.setattr(hdf5._BTree2, "__init__", spy)
+    attrs = hdf5.open_file(str(path)).dataset("d").attrs
+    np.testing.assert_array_equal(attrs["big"], big)
     assert trees == [8, 1]
     assert _same_file(path) == 1
 
@@ -620,8 +618,8 @@ def test_extensible_array_with_a_later_unlimited_dimension(tmp_path, libver):
     ((10, 10), (3, 3), 0), ((60, 70), (3, 2), 1), ((150, 150), (1, 1), 2)],
     ids=["depth0", "depth1", "depth2"])
 @pytest.mark.parametrize("libver", ["v110", "latest"])
-def test_version_2_btree_chunk_index(tmp_path, libver, shape, chunks, depth,
-                                     filters):
+def test_version_2_btree_chunk_index(tmp_path, monkeypatch, libver, shape,
+                                     chunks, depth, filters):
     """Two unlimited dimensions give the version 2 B-tree chunk index
     (records of type 10, or 11 with filters), at depths 0 to 2, with
     chunks never written."""
@@ -643,11 +641,8 @@ def test_version_2_btree_chunk_index(tmp_path, libver, shape, chunks, depth,
         real(self, *args)
         depths.append(self.depth)
 
-    hdf5._BTree2.__init__ = spy
-    try:
-        np.testing.assert_array_equal(d.read(), want)
-    finally:
-        hdf5._BTree2.__init__ = real
+    monkeypatch.setattr(hdf5._BTree2, "__init__", spy)
+    np.testing.assert_array_equal(d.read(), want)
     assert depths == [depth]
     assert (want == 9).any()
     assert _same_file(path) == 1
@@ -709,11 +704,11 @@ def test_tombo_like_reads_as_the_jax_reader_reads_it(tmp_path, libver):
     dtype as the JAX package's reader reads it."""
     fixtures = _make_fixtures()
     path = tmp_path / "x.fast5"
-    fixtures.write_tombo_like(str(path), np.random.default_rng(11), libver)
-    if libver != "earliest":
-        with h5py.File(path, "a", libver=libver) as h5:
-            for i in range(7):
-                h5.create_group(f"Analyses/Segmentation_{i:03d}")
+    rng = np.random.default_rng(11)
+    if libver == "earliest":
+        fixtures.write_tombo_like(str(path), rng)
+    else:
+        fixtures.write_tombo_latest(str(path), rng, libver)
     want = _jax_read(path)
     assert want.read_id == "0a1b2c3d-tombo-like"
     _same_read(fast5.read_resquiggled_fast5(str(path)), want)
@@ -744,7 +739,7 @@ def _new_structures_file(path):
 @pytest.mark.parametrize("what", [
     "BTHD", "BTIN", "BTLF", "FRHP", "FHIB", "FHDB", "EAHD", "EAIB", "EASB",
     "EADB", "EADB page"])
-def test_corrupt_checksums_raise(tmp_path, what):
+def test_corrupt_checksums_raise(tmp_path, monkeypatch, what):
     """A byte flipped inside each checksummed structure (in a field the
     reader does not use before the checksum) raises a ValueError."""
     path = tmp_path / "x.h5"
@@ -756,11 +751,9 @@ def test_corrupt_checksums_raise(tmp_path, what):
         regions.append((self.buf[start:start + 4], label, start, end))
         return real(self, start, end, label)
 
-    hdf5._File.checksum = spy
-    try:
+    with monkeypatch.context() as m:
+        m.setattr(hdf5._File, "checksum", spy)
         _read_all(path)
-    finally:
-        hdf5._File.checksum = real
     raw = bytearray(path.read_bytes())
     if what == "FHDB":
         at = raw.index(b"FHDB")
@@ -779,7 +772,8 @@ def test_corrupt_checksums_raise(tmp_path, what):
 
 def test_a_heap_with_a_filter_pipeline_is_refused(tmp_path):
     """A fractal heap whose I/O filter length is set (rewritten in place,
-    its checksum recomputed)."""
+    with the filtered root block's size, a filter mask and a byte of
+    pipeline after the header's fields, and its checksum after them)."""
     path = tmp_path / "x.h5"
     with h5py.File(path, "w", libver="latest") as h5:
         for i in range(10):
@@ -787,7 +781,7 @@ def test_a_heap_with_a_filter_pipeline_is_refused(tmp_path):
     raw = bytearray(path.read_bytes())
     at = raw.index(b"FRHP")
     raw[at + 7] = 1
-    end = at + 14 + 10 * 8 + 2 * 8 + 8 + 2 * 8 + 8
+    end = at + 14 + 10 * 8 + 2 * 8 + 8 + 2 * 8 + 8 + 8 + 4 + 1
     struct.pack_into("<I", raw, end, hdf5.lookup3(bytes(raw[at:end])))
     path.write_bytes(bytes(raw))
     with pytest.raises(NotImplementedError, match="fractal heap with an I/O "
