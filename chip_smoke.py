@@ -28,6 +28,17 @@ per-layer kernel.  Then it drives the main paths at full width:
   weights, on a synthetic feature TSV, in bfloat16 and in float32: the TSV
   is parsed by the native parser in the background reader process and the
   calls formatted by the native formatter, each counted;
+- the JAX package's library calls (``library``), after each dtype's
+  ``call_mods`` run, on the TSV's first two device batches:
+  ``parse_feature_lines`` at the given widths (equal to the probed parse),
+  ``ModCaller.call_feature_batch`` (K1 once per device batch), ``collect``
+  and ``collect_block`` on one handle (equal rows), the rows against the
+  ``call_mods`` run's calls (labels equal, probabilities within
+  DPROB_TOL), ``ModRecord.to_line`` on every row, ``batch_metrics``
+  against the counts made on the card, and ``forward_with_loss`` on the
+  card's logits against the CPU, both pos_weight forms; the per-row
+  ``call_feature_batch`` timed beside ``dispatch_feature_batch`` +
+  ``collect_block``;
 - ``train`` through ``train()`` on a synthetic separable labelled set
   (written as TSV, converted to binary records by the port), in float32 for
   two epochs and in bfloat16 for one, after which ``run_call_mods`` scores
@@ -207,6 +218,10 @@ MARGIN = 1e-3           # label check skips sites with |p1 - p0| below this
 # HBM3 at 700 W the first batches read 2.6e-3 to 3.1e-3 in bfloat16 and
 # 9.1e-7 to 1.2e-6 in float32; a broken encoder moves them by far more
 DPROB_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the library phase: the TSV's first rows, two device batches of B
+LIBRARY_ROWS = 2 * B
+# forward_with_loss on the card against the CPU (a mean in another order)
+LOSS_RTOL = 1e-6
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s of float32 FMA outside the tensor cores and of bfloat16 tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1189,6 +1204,135 @@ def check_batch_against_plain(dtype_name, tag, fb, ckpt, probs,
           f"{dprob:.3e} vs the plain encoder, bound {DPROB_TOL[dtype_name]}")
     return {"label_flips": flips, "sites_outside_margin": int(sure.sum()),
             "max_dprob": dprob}
+
+
+# --------------------------------------------------------------------------
+# the library calls: ModCaller.call_feature_batch and its relatives
+
+
+def run_library(dtype_name: str, tsv: str, ckpt: str, e2e_rows: list) -> dict:
+    """The JAX package's library calls on the card at full width, on the
+    first ``LIBRARY_ROWS`` rows of the TSV: ``parse_feature_lines`` with the
+    widths given (equal to the probed parse), ``ModCaller``'s
+    ``call_feature_batch`` (K1 once per device batch), ``collect`` and
+    ``collect_block`` on one handle (the rows equal the block's lines), the
+    rows against the e2e run's calls (labels equal, probabilities within
+    DPROB_TOL), ``ModRecord.to_line`` giving back every row,
+    ``batch_metrics`` against ``counts_to_metrics`` of the counts made on
+    the card, and ``forward_with_loss`` on the card's logits of the first
+    batch against the same function on the CPU, in both pos_weight forms.
+    It times ``call_feature_batch`` (the per-row ``format_call_row``) beside
+    ``dispatch_feature_batch`` + ``collect_block`` (the native formatter)."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from deepsignal_tpu_torch.io.calls_codec import ModRecord
+    from deepsignal_tpu_torch.io.feature_codec import parse_feature_lines
+    from deepsignal_tpu_torch.models import forward_with_loss
+    from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
+    from deepsignal_tpu_torch.runtime.caller import ModCaller
+    from deepsignal_tpu_torch.train.checkpoints import load_checkpoint
+    from deepsignal_tpu_torch.train.metrics import (batch_metrics,
+                                                    counts_to_metrics,
+                                                    metric_counts)
+
+    t_phase = time.time()
+    cfg, variables = load_checkpoint(ckpt)
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype_name)
+    tag = f"library {dtype_name}"
+    with open(tsv) as f:
+        lines = list(itertools.islice(f, LIBRARY_ROWS))
+    t0 = time.time()
+    fb = parse_feature_lines(lines, kmer_len=cfg.kmer_len,
+                             signal_len=cfg.cent_signals_len)
+    parse_s = time.time() - t0
+    probed = parse_feature_lines(lines)
+    check(len(fb) == LIBRARY_ROWS and fb.sampleinfo == probed.sampleinfo
+          and all(np.array_equal(getattr(fb, k), getattr(probed, k))
+                  for k in ("kmers", "means", "stds", "lens", "signals",
+                            "labels")),
+          f"{tag}: the parse at the given widths differs from the probed one")
+    caller = ModCaller(cfg, variables, batch_size=B, device=None)
+
+    bilstm_encoder_fused.launches = 0
+    t0 = time.time()
+    rows, pred, (p0, p1) = caller.call_feature_batch(fb)
+    first_call_s = time.time() - t0
+    launches = bilstm_encoder_fused.launches
+    device_batches = -(-LIBRARY_ROWS // B)
+    check(launches == device_batches, f"{tag}: K1 launched {launches} times "
+          f"for {device_batches} device batches")
+
+    handle = caller.dispatch_feature_batch(fb)
+    collected, pred_c, _ = caller.collect(handle)
+    block, pred_b, (q0, q1) = caller.collect_block(handle)
+    check(block.decode().split("\n") == collected + [""],
+          f"{tag}: collect's rows differ from collect_block's block")
+    check(np.array_equal(pred_c, pred_b), f"{tag}: collect's labels differ")
+    check(collected == rows and np.array_equal(pred, pred_b),
+          f"{tag}: a second scoring of the batch differs from the first")
+
+    want = e2e_rows[:LIBRARY_ROWS]
+    got = [r.split("\t") for r in rows]
+    check(all(len(r) == 10 for r in got), f"{tag}: not 10 columns")
+    check([r[:6] + r[8:] for r in got] == [r[:6] + r[8:] for r in want],
+          f"{tag}: labels, sites or k-mers differ from the e2e run's calls")
+    dprob = float(np.abs(np.float64([r[6:8] for r in got])
+                         - np.float64([r[6:8] for r in want])).max())
+    check(dprob <= DPROB_TOL[dtype_name], f"{tag}: max |dprob| {dprob} "
+          f"against the e2e run's calls, bound {DPROB_TOL[dtype_name]}")
+    check(all(ModRecord.from_fields(r.split("\t")).to_line() == r
+              for r in rows), f"{tag}: ModRecord.to_line changed a row")
+
+    dev = caller.device
+    labels = fb.labels.astype(np.int64)
+    on_card = metric_counts(torch.from_numpy(pred).to(dev),
+                            torch.from_numpy(labels).to(dev),
+                            torch.ones(len(labels), device=dev))
+    card_metrics = counts_to_metrics(on_card.cpu())
+    host_metrics = batch_metrics(labels, pred)
+    check(host_metrics == card_metrics, f"{tag}: batch_metrics "
+          f"{host_metrics} != counts_to_metrics {card_metrics}")
+
+    first = [torch.from_numpy(a[:B]).to(dev) for a in
+             (fb.kmers, fb.means, fb.stds, fb.lens.astype(np.float32),
+              fb.signals)]
+    with torch.inference_mode():
+        logits = caller.model(*first)
+    check(logits.dtype == torch.float32, f"{tag}: logits {logits.dtype}")
+    target = torch.from_numpy(labels[:B]).to(dev)
+    losses = {}
+    for pos_weight in (1.0, 2.5):
+        card = float(forward_with_loss(logits, target, 2, pos_weight))
+        host = float(forward_with_loss(logits.cpu(), target.cpu(), 2,
+                                       pos_weight))
+        rel = abs(card - host) / abs(host)
+        check(np.isfinite(card) and rel <= LOSS_RTOL, f"{tag}: "
+              f"forward_with_loss(pos_weight={pos_weight}) {card} on the "
+              f"card, {host} on the CPU")
+        losses[str(pos_weight)] = {"card": card, "cpu": host, "rel": rel}
+
+    def seconds(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[reps // 2]
+    call_s = seconds(lambda: caller.call_feature_batch(fb))
+    block_s = seconds(lambda: caller.collect_block(
+        caller.dispatch_feature_batch(fb)))
+    res = {"dtype": dtype_name, "rows": LIBRARY_ROWS, "launches": launches,
+           "parse_widths_s": parse_s, "first_call_s": first_call_s,
+           "call_feature_batch_s": call_s, "dispatch_collect_block_s": block_s,
+           "max_abs_dprob_vs_e2e": dprob, "metrics": list(host_metrics),
+           "loss": losses, "phase_s": time.time() - t_phase}
+    print(f"library {dtype_name}: {json.dumps(res)} | {card_line()}",
+          flush=True)
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -3119,6 +3263,7 @@ def main() -> None:
           flush=True)
 
     e2e = []
+    library = []
     for dtype_name in dtypes:
         calls_path = os.path.join(work, f"calls_{dtype_name}.tsv")
         res, probs, labels, rows = run_e2e(dtype_name, tsv, ckpt, calls_path)
@@ -3128,6 +3273,8 @@ def main() -> None:
             res["stages"] = time_stages(tsv, ckpt, rows,
                                         check_native_host(tsv, calls_path))
         e2e.append(res)
+        library.append(run_library(dtype_name, tsv, ckpt, rows))
+        launches["K1", dtype_name]["library"] = library[-1]["launches"]
 
     t0 = time.time()
     reads = make_reads(READS_SEED)
@@ -3216,7 +3363,8 @@ def main() -> None:
             rows.append(row)
     print(f"chip_smoke: {time.time() - start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"e2e": e2e, "train": trains, "denoise": denoised,
+    print(json.dumps({"e2e": e2e, "library": library, "train": trains,
+                      "denoise": denoised,
                       "gradients": grads, "step_parity": parity,
                       "reads": {"featurize": featurized,
                                 "extract": extracted, "e2e": e2e_reads,

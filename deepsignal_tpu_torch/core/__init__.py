@@ -1,0 +1,2 @@
+from . import constants  # noqa: F401
+from . import config  # noqa: F401

@@ -161,14 +161,15 @@ def extract_read_features(read: ResquiggledRead, motif_seqs: list,
         cent_signals=cent, methy_label=cfg.methy_label, is_dna=cfg.is_dna)
 
 
-def extract_fast5_batch(reads: list, motif_seqs: list, cfg: FeatureConfig,
+def extract_fast5_batch(fast5_paths: list, motif_seqs: list,
+                        cfg: FeatureConfig,
                         chrom2len: Optional[dict] = None,
                         positions: Optional[set] = None,
                         rng: Optional[random.Random] = None):
-    """Featurize a batch of reads, each one a fast5 path (read with
-    ``read_resquiggled_fast5``) or a ``ResquiggledRead`` (taken as it is),
-    with per-read fault isolation (extract_features.py:224-283: failures
-    counted, extraction continues).  Returns (list[ReadFeatures],
+    """Featurize a batch of reads, each item of ``fast5_paths`` a fast5 path
+    (read with ``read_resquiggled_fast5``) or a ``ResquiggledRead`` (taken
+    as it is), with per-read fault isolation (extract_features.py:224-283:
+    failures counted, extraction continues).  Returns (list[ReadFeatures],
     error_count).  A fast5 without the corrected Alignment group counts as
     an error, as the reference's blanket except does.
 
@@ -179,7 +180,7 @@ def extract_fast5_batch(reads: list, motif_seqs: list, cfg: FeatureConfig,
     featurizer_checked()
     out = []
     errors = 0
-    for item in reads:
+    for item in fast5_paths:
         try:
             read = item if isinstance(item, ResquiggledRead) else \
                 read_resquiggled_fast5(item, cfg.corrected_group,

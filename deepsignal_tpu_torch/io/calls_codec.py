@@ -69,17 +69,25 @@ def format_call_block(sampleinfo: list, p0: np.ndarray, p1: np.ndarray,
     return native.format_call_block(sampleinfo, p0, p1, pred, kmers, lut)
 
 
-def format_call_block_plain(sampleinfo: list, p0: np.ndarray, p1: np.ndarray,
-                            pred: np.ndarray, kmers: np.ndarray,
-                            is_dna: bool = True) -> bytes:
-    """The plain version of ``format_call_block``: one ``format_call_row``
-    per site."""
+def format_call_rows(sampleinfo: list, p0: np.ndarray, p1: np.ndarray,
+                     pred: np.ndarray, kmers: np.ndarray,
+                     is_dna: bool = True) -> list:
+    """All call rows of a batch, one ``format_call_row`` per site, each
+    without its newline."""
     p0 = np.ascontiguousarray(p0, dtype=np.float32)
     p1 = np.ascontiguousarray(p1, dtype=np.float32)
     kmer_strs = decode_kmer_strings(kmers, is_dna)
-    rows = [format_call_row(sampleinfo[i], p0[i], p1[i], int(pred[i]),
+    return [format_call_row(sampleinfo[i], p0[i], p1[i], int(pred[i]),
                             kmer_strs[i])
             for i in range(len(sampleinfo))]
+
+
+def format_call_block_plain(sampleinfo: list, p0: np.ndarray, p1: np.ndarray,
+                            pred: np.ndarray, kmers: np.ndarray,
+                            is_dna: bool = True) -> bytes:
+    """The plain version of ``format_call_block``: the rows of
+    ``format_call_rows``, each with its newline."""
+    rows = format_call_rows(sampleinfo, p0, p1, pred, kmers, is_dna)
     return "".join(r + "\n" for r in rows).encode("utf-8")
 
 
@@ -196,6 +204,15 @@ class ModRecord:
         return ModRecord(words[0], int(words[1]), words[2], int(words[3]),
                          words[4], words[5], float(words[6]), float(words[7]),
                          int(words[8]), words[9])
+
+    def to_line(self) -> str:
+        """The row's ten fields joined by tabs, with ``str`` of the numbers:
+        the probabilities as the Python floats they were read as (their
+        repr, not numpy's float32 one)."""
+        return "\t".join([self.chromosome, str(self.pos), self.strand,
+                          str(self.pos_in_strand), self.readname,
+                          self.read_strand, str(self.prob_0), str(self.prob_1),
+                          str(self.called_label), self.kmer])
 
 
 @dataclasses.dataclass

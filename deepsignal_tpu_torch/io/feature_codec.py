@@ -72,16 +72,23 @@ class FeatureBatch:
         )
 
 
-def parse_feature_lines(lines) -> FeatureBatch:
+def parse_feature_lines(lines, kmer_len: Optional[int] = None,
+                        signal_len: Optional[int] = None) -> FeatureBatch:
     """Parse TSV feature lines (call_modifications.py:51-57) with the native
-    block parser, at the widths of the first row."""
-    block = "".join(l if l.endswith("\n") else l + "\n" for l in lines)
-    return parse_feature_bytes(block.encode())
-
-
-def parse_feature_lines_plain(lines) -> FeatureBatch:
-    """The pure-Python parse of TSV feature lines, the plain version of the
+    block parser, at ``kmer_len``/``signal_len`` when both are given, else at
+    the widths of the first row.  Rows wider than the given widths are cut
+    to them; a narrower row raises ValueError, as in the JAX package's
     native parser."""
+    block = "".join(l if l.endswith("\n") else l + "\n" for l in lines)
+    return parse_feature_bytes(block.encode(), kmer_len, signal_len)
+
+
+def parse_feature_lines_plain(lines, kmer_len: Optional[int] = None,
+                              signal_len: Optional[int] = None
+                              ) -> FeatureBatch:
+    """The pure-Python parse of TSV feature lines, the plain version of the
+    native parser.  It takes each row at its own widths and ignores
+    ``kmer_len``/``signal_len``, as the JAX package's Python parse does."""
     sampleinfo = []
     kmers, means, stds, lens, signals, labels = [], [], [], [], [], []
     for line in lines:

@@ -1,0 +1,1 @@
+from .deepsignal import DeepSignalNet, forward_with_loss, predictions  # noqa: F401

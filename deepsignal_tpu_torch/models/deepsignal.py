@@ -18,6 +18,7 @@ weights come from a seed through ``init_weights``, with flax's initializers.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import ModelConfig
@@ -153,6 +154,18 @@ def predictions(logits: torch.Tensor, pos_weight: float = 1.0) -> torch.Tensor:
     if pos_weight == 1.0:
         return torch.argmax(torch.sigmoid(logits), dim=1)
     return (torch.sigmoid(logits[:, 1]) > 0.5).to(torch.int64)
+
+
+def forward_with_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      class_num: int, pos_weight: float = 1.0) -> torch.Tensor:
+    """Mean weighted-CE cost (model.py:105-118): over the one-hot [B, C]
+    grid in the logits' dtype at pos_weight 1, else over the class-1 logit.
+    The trainer keeps its own masked form (``train/trainer.py``)."""
+    if pos_weight == 1.0:
+        one_hot = F.one_hot(labels.long(), class_num).to(logits.dtype)
+        return torch.mean(weighted_ce_with_logits(logits, one_hot, pos_weight))
+    return torch.mean(weighted_ce_with_logits(
+        logits[:, 1], labels.to(logits.dtype), pos_weight))
 
 
 def normalized_probs(logits: torch.Tensor):

@@ -27,7 +27,8 @@ import torch
 from ..core.config import FeatureConfig, ModelConfig
 from ..core.device import resolve_device
 from ..core.logging import ThroughputMeter, nvtx_range, trace
-from ..io.calls_codec import count_read_runs, format_call_block
+from ..io.calls_codec import (count_read_runs, format_call_block,
+                              format_call_rows)
 from ..io.feature_codec import FeatureBatch
 from ..models.deepsignal import model_from_state_dict, predictions
 from ..parallel.dist import rank_and_world, shard_output_path
@@ -63,7 +64,8 @@ class ModCaller:
 
     ``dispatch_feature_batch`` enqueues the copies and the forward passes
     of a feature batch and returns at once; ``collect_block`` waits for
-    them and formats the call rows."""
+    them and formats the call rows as one block, ``collect`` as a list of
+    rows.  ``call_feature_batch`` does both for one batch."""
 
     def __init__(self, cfg: ModelConfig, variables, batch_size: int = 4096,
                  device=None):
@@ -111,7 +113,8 @@ class ModCaller:
 
     def dispatch_feature_batch(self, fb: FeatureBatch):
         """Enqueue every fixed-shape device batch of ``fb``; returns a
-        handle for ``collect_block``."""
+        handle for ``collect`` or ``collect_block``, which may each take it
+        more than once."""
         n = len(fb)
         bs = self.batch_size
         pending = []
@@ -140,9 +143,26 @@ class ModCaller:
             all_pred[i:j] = pred.numpy()[:j - i]
         return fb, all_pred, all_p0, all_p1
 
+    def call_feature_batch(self, fb: FeatureBatch, is_dna: bool = True):
+        """Score a FeatureBatch; returns (rows, pred int64 [n], (p0 f32 [n],
+        p1 f32 [n])), the rows in input order as ``collect`` gives them."""
+        return self.collect(self.dispatch_feature_batch(fb), is_dna=is_dna)
+
+    def collect(self, handle, is_dna: bool = True):
+        """Wait on a dispatch handle; returns (rows, pred, (p0, p1)), each
+        row a ``str`` without its newline, formatted one site at a time
+        (``format_call_rows``): ``collect_block``'s block split into
+        lines."""
+        fb, all_pred, all_p0, all_p1 = self._resolve(handle)
+        with nvtx_range("format", self._cuda):
+            rows = format_call_rows(fb.sampleinfo, all_p0, all_p1, all_pred,
+                                    fb.kmers, is_dna)
+        return rows, all_pred, (all_p0, all_p1)
+
     def collect_block(self, handle, is_dna: bool = True):
         """Wait on a dispatch handle; returns (rows as one bytes block,
-        pred, (p0, p1))."""
+        pred, (p0, p1)).  The path of ``call_mods``: one native formatter
+        call for the whole block."""
         fb, all_pred, all_p0, all_p1 = self._resolve(handle)
         with nvtx_range("format", self._cuda):
             block = format_call_block(fb.sampleinfo, all_p0, all_p1,

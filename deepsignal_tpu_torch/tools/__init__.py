@@ -1,0 +1,2 @@
+from . import frequency  # noqa: F401
+from . import dataset  # noqa: F401

@@ -1,0 +1,1 @@
+from . import checkpoints  # noqa: F401

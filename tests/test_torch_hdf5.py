@@ -519,6 +519,86 @@ def test_names_whose_hashes_collide(tmp_path, libver):
     assert _same_file(path) == 14
 
 
+@pytest.mark.parametrize("libver", NEW_FORMATS)
+def test_colliding_names_on_both_sides_of_a_node_key(tmp_path, libver):
+    """Equal name hashes in an internal node and in a leaf below it: the
+    lookup descends into every child whose bounding keys admit the hash,
+    bounds included, and finds both names.  The pair goes in first, then
+    21 names that hash below it and 30 above, so that the root leaf's split
+    lifts one of the pair into the root (h5py's name index, depth 1)."""
+    (a, b), _ = COLLIDING
+    h = hdf5.lookup3(a.encode())
+    names = [f"x{i}" for i in range(3000)]
+    low = [n for n in names if hdf5.lookup3(n.encode()) < h][:21]
+    high = [n for n in names if hdf5.lookup3(n.encode()) > h][:30]
+    path = tmp_path / "x.h5"
+    with h5py.File(path, "w", libver=libver) as h5:
+        g = h5.create_group("g")
+        for k, name in enumerate([a, b] + low + high):
+            g.create_dataset(name, data=np.int32(k))
+    g = hdf5.open_file(str(path)).group("g")
+    tree = g._dense_links().tree
+    visited = []
+    walk = hdf5._BTree2._node
+
+    def spy(self, addr, nrec, depth, key, match, out):
+        visited.append((addr, depth))
+        walk(self, addr, nrec, depth, key, match, out)
+
+    hdf5._BTree2._node = spy
+    try:
+        found = tree.records(lambda r: struct.unpack_from("<I", tree.f.buf,
+                                                          r)[0], h)
+    finally:
+        hdf5._BTree2._node = walk
+    # the depth of the node holding each record of the hash
+    depths = sorted(max((at, d) for at, d in visited if at < r)[1]
+                    for r in found)
+    assert tree.depth == 1 and depths == [0, 1]
+    assert [g.dataset(n).read()[()] for n in (a, b)] == [0, 1]
+    assert _same_file(path) == 1 + 2 + len(low) + len(high)  # g too
+
+
+def _with_max_managed(src: str, dst, value: int) -> int:
+    """Copy ``src`` to ``dst`` with every fractal heap header's maximum
+    managed object size set to ``value`` and its checksum recomputed with
+    the port's lookup3; returns the number of heaps.  The header's layout
+    is that of 8-byte offsets and lengths, checked by the old checksum."""
+    buf = bytearray(open(src, "rb").read())
+    heaps = 0
+    at = buf.find(b"FRHP")
+    while at >= 0:
+        end = at + 14 + 10 * 8 + 2 * 8 + 8 + 2 * 8 + 8  # to the checksum
+        assert struct.unpack_from("<I", buf, end)[0] == \
+            hdf5.lookup3(bytes(buf[at:end]))
+        struct.pack_into("<I", buf, at + 10, value)
+        struct.pack_into("<I", buf, end, hdf5.lookup3(bytes(buf[at:end])))
+        heaps += 1
+        at = buf.find(b"FRHP", at + 4)
+    dst.write_bytes(bytes(buf))
+    return heaps
+
+
+@pytest.mark.parametrize("max_managed", [1 << 16, 1 << 24])
+def test_a_heap_ids_length_takes_the_narrower_width(tmp_path, max_managed):
+    """A managed object's length in a heap ID takes the narrower of the
+    widths of the largest direct block's offsets and of the maximum
+    managed object size (``H5HF__hdr_finish_init``).  h5py's heaps have a
+    64 KB direct block and a 4 KB maximum, where both are 2 bytes; raised
+    to 64 KB or 16 MB the maximum's width is 3 or 4 bytes, and the file
+    still reads as h5py reads it."""
+    src = os.path.join(FIXTURES, "tombo_latest.fast5")
+    path = tmp_path / "wide.fast5"
+    assert _with_max_managed(src, path, max_managed) == 4
+    assert hdf5._enc_size(max_managed) > 2
+    root = hdf5.open_file(str(path))
+    heap = root.group("UniqueGlobalKey/tracking_id").attrs._dense.heap
+    assert heap.len_size == 2
+    assert _same_file(path) == _same_file(src)
+    _same_read(fast5.read_resquiggled_fast5(str(path)),
+               fast5.read_resquiggled_fast5(src))
+
+
 def test_tiny_heap_objects_are_read_from_the_heap_id(tmp_path):
     """A tiny object lies in its heap ID (type 2, its length less one in
     the low 4 bits of the first byte).  HDF5 stores no link or attribute
