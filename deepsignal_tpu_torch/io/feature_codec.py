@@ -22,6 +22,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..core.constants import BASE2CODE_DNA
+from ..core.logging import count, span
 from . import native
 
 # k-mer encode table: A/C/G/T as the DNA codes, U as 3 (RNA k-mers), anything
@@ -245,7 +246,27 @@ def iter_feature_batches_by_read(features_file: str,
 
     Lines are read as bytes and go to the native parser as one block, with
     no decode and encode of each line; rows split by "\\n" (or "\\r\\n")
-    give the batches the text-mode read of the JAX package gives."""
+    give the batches the text-mode read of the JAX package gives.  Each
+    batch is a ``reader.group`` span (reading and grouping its lines), a
+    ``reader.parse`` span and a ``reader.rows`` count."""
+    blocks = _read_grouped_blocks(features_file, reads_per_batch, host_shard)
+    try:
+        while True:
+            with span("reader.group"):
+                block = next(blocks, None)
+            if block is None:
+                return
+            with span("reader.parse"):
+                fb = parse_feature_bytes(block)
+            count("reader.rows", len(fb))
+            yield fb
+    finally:
+        blocks.close()
+
+
+def _read_grouped_blocks(features_file: str, reads_per_batch: int,
+                         host_shard) -> Iterator[bytes]:
+    """The lines of each of this shard's read-grouped batches, joined."""
     k, n = host_shard if host_shard is not None else (0, 1)
     pending: list = []
     readid_pre: Optional[bytes] = None
@@ -261,13 +282,13 @@ def iter_feature_batches_by_read(features_file: str,
                 readid_pre = readid
                 if r_num % reads_per_batch == 0:
                     if b_num % n == k:
-                        yield parse_feature_bytes(b"".join(pending))
+                        yield b"".join(pending)
                     b_num += 1
                     pending = []
             if b_num % n == k:
                 pending.append(line)
     if pending and b_num % n == k:
-        yield parse_feature_bytes(b"".join(pending))
+        yield b"".join(pending)
 
 
 def format_feature_row(chrom: str, pos: int, strand: str, pos_in_strand: int,

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..core.config import ModelConfig
 from ..core.device import torch_dtype
+from ..core.logging import span
 from ..parallel.mesh import param_shardings, shard_rows
 from .layers import BiLSTMEncoder, InceptionNet, JointHead, TFBatchNorm
 
@@ -114,25 +115,36 @@ class DeepSignalNet(nn.Module):
                 generator: torch.Generator = None) -> torch.Tensor:
         """Logits [B, class_num] in float32.  ``train`` uses the batch's
         batch-norm statistics (and moves the running ones) and, with
-        ``keep_prob < 1``, dropout drawn from ``generator``."""
-        cfg = self.cfg
-        dt = torch_dtype(cfg.compute_dtype)
-        means, stds, sanums, signals = (a.to(dt) for a in
-                                        (means, stds, sanums, signals))
-        branches = []
-        if cfg.is_rnn:
-            if cfg.is_base:
-                embedded = self.embedding.to(dt)[kmer.long()]  # [B, K, emb]
-                fusion = torch.cat([embedded, means[..., None],
-                                    stds[..., None], sanums[..., None]], dim=2)
-            else:
-                fusion = torch.stack([means, stds, sanums], dim=2)
-            branches.append(self.event_model(fusion, train, keep_prob,
-                                             generator))
-        if cfg.is_cnn:
-            branches.append(self.signal_model(signals[:, None, :], train))
-        joint = torch.cat(branches, dim=1) if len(branches) > 1 else branches[0]
-        return self.joint_model(joint, train, keep_prob, generator).float()
+        ``keep_prob < 1``, dropout drawn from ``generator``.  The whole is a
+        ``model.forward`` span, each branch and the head a span of its own
+        (``model.encoder``, ``model.inception``, ``model.head``)."""
+        with span("model.forward"):
+            cfg = self.cfg
+            dt = torch_dtype(cfg.compute_dtype)
+            means, stds, sanums, signals = (a.to(dt) for a in
+                                            (means, stds, sanums, signals))
+            branches = []
+            if cfg.is_rnn:
+                if cfg.is_base:
+                    # [B, K, emb]
+                    embedded = self.embedding.to(dt)[kmer.long()]
+                    fusion = torch.cat([embedded, means[..., None],
+                                        stds[..., None], sanums[..., None]],
+                                       dim=2)
+                else:
+                    fusion = torch.stack([means, stds, sanums], dim=2)
+                with span("model.encoder"):
+                    branches.append(self.event_model(fusion, train,
+                                                     keep_prob, generator))
+            if cfg.is_cnn:
+                with span("model.inception"):
+                    branches.append(self.signal_model(signals[:, None, :],
+                                                      train))
+            with span("model.head"):
+                joint = torch.cat(branches, dim=1) if len(branches) > 1 \
+                    else branches[0]
+                return self.joint_model(joint, train, keep_prob,
+                                        generator).float()
 
 
 def weighted_ce_with_logits(logits: torch.Tensor, targets: torch.Tensor,

@@ -7,9 +7,18 @@ row), shipped in a compact wire format through pinned host memory with
 non-blocking copies, and scored; the sigmoid and argmax run on the device,
 the float32 renormalization on the host (call_modifications.py:185-187).
 Up to ``pipeline_depth`` feature batches are in flight while the host
-formats and writes the previous one.  On CUDA the stages carry NVTX ranges
-(``read_wait``, ``h2d``, ``forward``, ``format``), and ``run_call_mods``
-writes a ``torch.profiler`` trace when given ``profile_dir``.
+formats and writes the previous one.
+
+Each stage is a span (``core/logging.py``), once per device batch:
+``caller.read_wait`` (each pull from the input), ``caller.dispatch``
+holding ``caller.wire`` (wire arrays, pinning, the copies' enqueue) and
+``caller.forward`` (the model's launches, sigmoid, argmax, the fetch's
+enqueue), ``caller.wait`` (the wait on the device), ``caller.format``
+(renormalization and the formatter) and ``caller.write``; ``caller.build``
+is the model's set-up.  A span is a ``record_function`` range under any
+torch profiler (``run_call_mods`` writes a trace when given
+``profile_dir``), an NVTX range under ``emit_nvtx``, and otherwise only an
+entry of the in-memory record.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 
 from ..core.config import FeatureConfig, ModelConfig
 from ..core.device import resolve_device
-from ..core.logging import ThroughputMeter, nvtx_range, trace
+from ..core.logging import ThroughputMeter, span, trace
 from ..io.calls_codec import (count_read_runs, format_call_block,
                               format_call_rows)
 from ..io.feature_codec import FeatureBatch
@@ -72,8 +81,9 @@ class ModCaller:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch_size = batch_size
-        self.model = model_from_state_dict(
-            cfg, variables_to_state_dict(cfg, variables), self.device)
+        with span("caller.build"):
+            self.model = model_from_state_dict(
+                cfg, variables_to_state_dict(cfg, variables), self.device)
         self._cuda = self.device.type == "cuda"
         self._warned_counts = False
 
@@ -95,20 +105,20 @@ class ModCaller:
             print("warning: per-base signal count > 65535 clipped to the "
                   "uint16 wire range (the reference's <u2 binary record "
                   "limit)", file=sys.stderr)
-        with nvtx_range("h2d", self._cuda):
+        with span("caller.wire"):
             kmer, means, stds, counts, signals = (
                 self._to_device(a) for a in
                 compact_wire_arrays(kmer, means, stds, sanums, signals))
-        with nvtx_range("forward", self._cuda):
+        with span("caller.forward"):
             sanums = counts.to(torch.int32) & 0xFFFF
             logits = self.model(kmer, means, stds, sanums, signals)
             # sigmoid, not softmax (model.py:99-100); argmax at pos_weight 1
             act = self._to_host(torch.sigmoid(logits))
             pred = self._to_host(predictions(logits))
-        done = None
-        if self._cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+            done = None
+            if self._cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
         return act, pred, done
 
     def dispatch_feature_batch(self, fb: FeatureBatch):
@@ -118,24 +128,33 @@ class ModCaller:
         n = len(fb)
         bs = self.batch_size
         pending = []
-        for i in range(0, n, bs):
-            j = min(i + bs, n)
-            out = self._run_fixed(*(pad_to_multiple(a[i:j], bs)[0] for a in (
-                fb.kmers, fb.means, fb.stds, fb.lens, fb.signals)))
-            pending.append((i, j, out))
+        with span("caller.dispatch"):
+            for i in range(0, n, bs):
+                j = min(i + bs, n)
+                out = self._run_fixed(*(pad_to_multiple(a[i:j], bs)[0]
+                                        for a in (fb.kmers, fb.means, fb.stds,
+                                                  fb.lens, fb.signals)))
+                pending.append((i, j, out))
         return fb, pending
 
-    def _resolve(self, handle):
-        """Wait on a dispatch handle; returns (fb, pred int64, p0 f32,
-        p1 f32) with the reference's host-side float32 renormalization."""
+    @staticmethod
+    def _wait(handle) -> None:
+        """Wait for every device batch of a dispatch handle."""
+        for *_, (_, _, done) in handle[1]:
+            with span("caller.wait"):
+                if done is not None:
+                    done.synchronize()
+
+    @staticmethod
+    def _renormalize(handle):
+        """(fb, pred int64, p0 f32, p1 f32) of a handle waited on, with the
+        reference's host-side float32 renormalization."""
         fb, pending = handle
         n = len(fb)
         all_pred = np.empty(n, dtype=np.int64)
         all_p0 = np.empty(n, dtype=np.float32)
         all_p1 = np.empty(n, dtype=np.float32)
-        for i, j, (act, pred, done) in pending:
-            if done is not None:
-                done.synchronize()
+        for i, j, (act, pred, _) in pending:
             act = act.numpy()[:j - i]  # float32 [valid, 2] sigmoid
             total = act[:, 0] + act[:, 1]
             all_p0[i:j] = act[:, 0] / total
@@ -153,8 +172,9 @@ class ModCaller:
         row a ``str`` without its newline, formatted one site at a time
         (``format_call_rows``): ``collect_block``'s block split into
         lines."""
-        fb, all_pred, all_p0, all_p1 = self._resolve(handle)
-        with nvtx_range("format", self._cuda):
+        self._wait(handle)
+        with span("caller.format"):
+            fb, all_pred, all_p0, all_p1 = self._renormalize(handle)
             rows = format_call_rows(fb.sampleinfo, all_p0, all_p1, all_pred,
                                     fb.kmers, is_dna)
         return rows, all_pred, (all_p0, all_p1)
@@ -163,8 +183,9 @@ class ModCaller:
         """Wait on a dispatch handle; returns (rows as one bytes block,
         pred, (p0, p1)).  The path of ``call_mods``: one native formatter
         call for the whole block."""
-        fb, all_pred, all_p0, all_p1 = self._resolve(handle)
-        with nvtx_range("format", self._cuda):
+        self._wait(handle)
+        with span("caller.format"):
+            fb, all_pred, all_p0, all_p1 = self._renormalize(handle)
             block = format_call_block(fb.sampleinfo, all_p0, all_p1,
                                       all_pred, fb.kmers, is_dna)
         return block, all_pred, (all_p0, all_p1)
@@ -173,10 +194,17 @@ class ModCaller:
 def coalesce_feature_batches(batches: Iterable[FeatureBatch],
                              n: int) -> Iterator[FeatureBatch]:
     """Re-chunk a stream of FeatureBatches into batches of exactly ``n``
-    rows (the last one may be smaller), preserving row order."""
+    rows (the last one may be smaller), preserving row order.  Each pull
+    from ``batches`` is a ``caller.read_wait`` span: the wait on the
+    input, without the re-chunking's copies."""
     pending: list = []
     count = 0
-    for fb in batches:
+    batches = iter(batches)
+    while True:
+        with span("caller.read_wait"):
+            fb = next(batches, None)
+        if fb is None:
+            break
         pending.append(fb)
         count += len(fb)
         while count >= n:
@@ -208,7 +236,8 @@ def call_mods_on_batches(caller: ModCaller, batches: Iterable[FeatureBatch],
             handle = in_flight.popleft()
             fb = handle[0]
             block, _, _ = caller.collect_block(handle, is_dna=is_dna)
-            wf.write(block)
+            with span("caller.write"):
+                wf.write(block)
             count += len(fb)
             if meter is not None and fb.sampleinfo:
                 runs, first, last = count_read_runs(fb.sampleinfo)
@@ -217,13 +246,7 @@ def call_mods_on_batches(caller: ModCaller, batches: Iterable[FeatureBatch],
                                            else 0))
                 prev_last_read = last
 
-        stream = coalesce_feature_batches(batches, caller.batch_size)
-        cuda = caller.device.type == "cuda"
-        while True:
-            with nvtx_range("read_wait", cuda):
-                fb = next(stream, None)
-            if fb is None:
-                break
+        for fb in coalesce_feature_batches(batches, caller.batch_size):
             in_flight.append(caller.dispatch_feature_batch(fb))
             if len(in_flight) > pipeline_depth:
                 drain_one()

@@ -4,7 +4,9 @@ deepsignal_tpu/runtime/pipeline.py).
 - The feature reader (``_file_reader_proc``, ``stream_file_feature_batches``)
   parses a feature TSV into read-grouped ``FeatureBatch``es with the native
   parser and queues them, so that parsing overlaps the device
-  (call_modifications.py:450-455).
+  (call_modifications.py:450-455).  Each batch carries the reader's spans
+  and counts (``core/logging.py``), which the consumer files into its own
+  process's record as the batch arrives.
 - The extract workers (``_extract_worker``) featurize batches of reads:
   ``run_extract`` writes their feature rows to a TSV through a writer
   process (extract_features.py:306-478), and
@@ -50,6 +52,7 @@ from typing import Iterator, Optional
 
 from ..core.config import FeatureConfig
 from ..core.constants import get_motif_seqs
+from ..core.logging import RECORD, span
 from ..featurize.extractor import (extract_fast5_batch,
                                    read_features_to_batch,
                                    read_position_file)
@@ -70,17 +73,21 @@ JOIN_S = 10.0            # how long a finished process may take to exit
 def _file_reader_proc(features_file: str, batch_q, reads_per_batch: int,
                       host_shard=None):
     """Queue the file's read-grouped batches (of ``host_shard``, see
-    ``iter_feature_batches_by_read``), then ``("done", n)`` with the
-    reader's count of native parses; an exception is queued instead, for
-    the consumer to raise."""
+    ``iter_feature_batches_by_read``) as ``("batch", fb, taken)``, then
+    ``("done", n, taken)`` with the reader's count of native parses;
+    ``taken`` is what the reader recorded since its last item
+    (``RECORD.take()``: the batch's ``reader.group``, ``reader.parse`` and
+    ``reader.rows``, the last put's ``reader.put``).  An exception is
+    queued instead, for the consumer to raise."""
     try:
         for fb in iter_feature_batches_by_read(features_file,
                                                reads_per_batch, host_shard):
-            batch_q.put(fb)
+            with span("reader.put"):
+                batch_q.put(("batch", fb, RECORD.take()))
     except Exception as exc:  # handed to the consumer, which raises it
         batch_q.put(exc)
         return
-    batch_q.put(("done", native.parse_feature_block.calls))
+    batch_q.put(("done", native.parse_feature_block.calls, RECORD.take()))
 
 
 class _ReaderStream:
@@ -120,7 +127,8 @@ class _ReaderStream:
         try:
             while True:
                 try:
-                    item = self._q.get(timeout=READER_POLL_S)
+                    with span("pipeline.get"):
+                        item = self._q.get(timeout=READER_POLL_S)
                 except queue_mod.Empty:
                     if self._reader.is_alive():
                         continue
@@ -131,13 +139,14 @@ class _ReaderStream:
                             f"the feature reader of {self._file} ended with "
                             f"exit code {self._reader.exitcode} before the "
                             f"end of the file") from None
-                if isinstance(item, FeatureBatch):
-                    yield item
-                elif isinstance(item, BaseException):
+                if isinstance(item, BaseException):
                     raise item
-                else:
-                    native.parse_feature_block.calls += item[1]
+                kind, payload, taken = item
+                RECORD.extend(taken)
+                if kind == "done":
+                    native.parse_feature_block.calls += payload
                     break
+                yield payload
             self._reader.join(timeout=READER_POLL_S * 10)
         finally:
             self._stop()
@@ -151,8 +160,9 @@ def stream_file_feature_batches(features_file: str, reads_per_batch: int = 50,
     ``host_shard=(k, n)`` takes every n-th read-grouped batch starting at
     k, the per-rank stride partition.  The
     reader's native parses are added to ``native.parse_feature_block.calls``
-    at the end of the file.  ``close()`` on the stream stops the reader,
-    also when the stream was never read."""
+    at the end of the file, its spans and counts to ``RECORD`` with each
+    batch.  ``close()`` on the stream stops the reader, also when the
+    stream was never read."""
     if not background:
         return iter_feature_batches_by_read(features_file, reads_per_batch,
                                             host_shard)

@@ -22,6 +22,14 @@ The step's metrics (loss, counts, predictions) come back through pinned
 host buffers with non-blocking copies and are read one step late, so the
 host queues step i + 1 before it waits for step i.
 
+Spans (``core/logging.py``): a step is ``trainer.step`` holding
+``trainer.zero_grad``, ``model.forward``, ``trainer.loss``,
+``trainer.backward``, ``trainer.optimizer`` and ``trainer.metrics``;
+``trainer.stage`` and ``trainer.resolve`` are a batch's copy in and a
+step's metrics out; ``trainer.build``, ``trainer.to_device``,
+``trainer.build_optimizer`` and ``trainer.restore`` are the set-up's
+stages.
+
 On a mesh of ranks (``parallel/mesh.py``; one process per GPU) every rank
 sees the same global batch and trains on its contiguous block of it; a
 step computes what one process computes on the whole batch, as the JAX
@@ -56,6 +64,7 @@ import torch.nn.functional as F
 
 from ..core.config import ModelConfig, TrainConfig
 from ..core.device import resolve_device
+from ..core.logging import span
 from ..models.deepsignal import (DeepSignalNet, predictions,
                                  weighted_ce_with_logits)
 from ..parallel.dist import barrier, rank_and_world
@@ -130,7 +139,10 @@ class Trainer:
         self.tcfg = train_cfg
         init_seed, dropout_seed = (int(s) for s in np.random.SeedSequence(
             train_cfg.seed).generate_state(2))
-        self.model = DeepSignalNet(model_cfg, seed=init_seed).to(self.device)
+        with span("trainer.build"):
+            model = DeepSignalNet(model_cfg, seed=init_seed)
+        with span("trainer.to_device"):
+            self.model = model.to(self.device)
         if mesh is not None:
             self.model.set_mesh(mesh)
         self._tp_index = ([n for n, _ in self.model.named_parameters()]
@@ -142,9 +154,10 @@ class Trainer:
         self._data_sync = mesh is not None and mesh.data > 1
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(dropout_seed)
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=train_cfg.learning_rate,
-            betas=(0.9, 0.999), eps=1e-8)
+        with span("trainer.build_optimizer"):
+            self.optimizer = torch.optim.Adam(
+                self.model.parameters(), lr=train_cfg.learning_rate,
+                betas=(0.9, 0.999), eps=1e-8)
         self._cuda = self.device.type == "cuda"
 
     # -- host <-> device ----------------------------------------------------
@@ -182,17 +195,19 @@ class Trainer:
         batch's).  Mapped over the batches inside ``prefetch_batches``, it
         runs on the prefetch thread, so the copy of batch i + 1 overlaps
         step i."""
-        batch = dict(batch)
-        n = batch["labels"].shape[0]
-        valid = batch.pop("__valid__", n)
-        mask = np.zeros(n, dtype=np.float32)
-        mask[:valid] = 1.0
-        if self.mesh is not None:
-            data, rank = self.mesh.data, self.mesh.data_rank
-            batch, mask = local_block(batch, rank, data), \
-                local_block(mask, rank, data)
-        return StagedBatch({k: self._to_device(v) for k, v in batch.items()},
-                           self._to_device(mask), valid)
+        with span("trainer.stage"):
+            batch = dict(batch)
+            n = batch["labels"].shape[0]
+            valid = batch.pop("__valid__", n)
+            mask = np.zeros(n, dtype=np.float32)
+            mask[:valid] = 1.0
+            if self.mesh is not None:
+                data, rank = self.mesh.data, self.mesh.data_rank
+                batch, mask = local_block(batch, rank, data), \
+                    local_block(mask, rank, data)
+            return StagedBatch({k: self._to_device(v)
+                                for k, v in batch.items()},
+                               self._to_device(mask), valid)
 
     # -- steps --------------------------------------------------------------
 
@@ -200,25 +215,32 @@ class Trainer:
         """Queue one optimizer step; return a handle for
         ``resolve_metrics``.  The step's loss, counts and predictions are
         already on their way to the host when this returns."""
-        tensors, mask, valid = (batch if isinstance(batch, StagedBatch)
-                                else self.stage_batch(batch))
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(*(tensors[k] for k in INPUTS), train=True,
-                            keep_prob=self.tcfg.keep_prob,
-                            generator=self.generator)
-        loss = masked_mean_loss(logits, tensors["labels"], mask,
-                                self.mcfg.class_num, self.tcfg.pos_weight,
-                                valid if self._data_sync else None)
-        loss.backward()
-        if self._sync:
-            self._sum_gradients()
-        self.optimizer.step()
-        preds = predictions(logits.detach(), self.tcfg.pos_weight)
-        counts = metric_counts(preds, tensors["labels"], mask)
-        loss, counts, (preds,) = self._global(loss.detach(), counts, preds)
-        return self._fetch(loss, counts, preds), valid
+        with span("trainer.step"):
+            tensors, mask, valid = (batch if isinstance(batch, StagedBatch)
+                                    else self.stage_batch(batch))
+            with span("trainer.zero_grad"):
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.zero_grad(set_to_none=True)
+            logits = self.model(*(tensors[k] for k in INPUTS), train=True,
+                                keep_prob=self.tcfg.keep_prob,
+                                generator=self.generator)
+            with span("trainer.loss"):
+                loss = masked_mean_loss(
+                    logits, tensors["labels"], mask, self.mcfg.class_num,
+                    self.tcfg.pos_weight, valid if self._data_sync else None)
+            with span("trainer.backward"):
+                loss.backward()
+                if self._sync:
+                    self._sum_gradients()
+            with span("trainer.optimizer"):
+                self.optimizer.step()
+            with span("trainer.metrics"):
+                preds = predictions(logits.detach(), self.tcfg.pos_weight)
+                counts = metric_counts(preds, tensors["labels"], mask)
+                loss, counts, (preds,) = self._global(loss.detach(), counts,
+                                                      preds)
+                return self._fetch(loss, counts, preds), valid
 
     def _sum_gradients(self) -> None:
         """Sum every gradient over the data group, in one all-reduce.  With
@@ -257,9 +279,10 @@ class Trainer:
 
     def resolve_metrics(self, handle):
         """(loss, counts, preds[:valid], valid) of a train-step handle."""
-        fetched, valid = handle
-        loss, counts, preds = self._wait(fetched)
-        return float(loss), counts, preds[:valid], valid
+        with span("trainer.resolve"):
+            fetched, valid = handle
+            loss, counts, preds = self._wait(fetched)
+            return float(loss), counts, preds[:valid], valid
 
     def train_on_batch(self, batch, lr: float):
         return self.resolve_metrics(self.train_on_batch_async(batch, lr))
@@ -317,22 +340,23 @@ class Trainer:
     def restore(self, variables, train_state) -> None:
         """Restore params, batch-norm statistics, Adam and the generator
         (on a mesh with a model axis, this rank's rows of fc1)."""
-        sd = {k: torch.from_numpy(v) for k, v in
-              variables_to_state_dict(self.mcfg, variables).items()}
-        if self._tp_index is not None:
-            sd[TP_PARAM] = shard_rows(sd[TP_PARAM], self.mesh)
-        self.model.load_state_dict(sd)
-        opt = self.optimizer.state_dict()
-        opt["state"] = {}
-        for i, st in train_state["opt_state"].items():
-            st = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
-            if int(i) == self._tp_index:
-                st = {k: shard_rows(v, self.mesh) if v.dim() else v
-                      for k, v in st.items()}
-            opt["state"][int(i)] = st
-        self.optimizer.load_state_dict(opt)
-        self.generator.set_state(torch.from_numpy(
-            np.array(train_state["rng"])))
+        with span("trainer.restore"):
+            sd = {k: torch.from_numpy(v) for k, v in
+                  variables_to_state_dict(self.mcfg, variables).items()}
+            if self._tp_index is not None:
+                sd[TP_PARAM] = shard_rows(sd[TP_PARAM], self.mesh)
+            self.model.load_state_dict(sd)
+            opt = self.optimizer.state_dict()
+            opt["state"] = {}
+            for i, st in train_state["opt_state"].items():
+                st = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+                if int(i) == self._tp_index:
+                    st = {k: shard_rows(v, self.mesh) if v.dim() else v
+                          for k, v in st.items()}
+                opt["state"][int(i)] = st
+            self.optimizer.load_state_dict(opt)
+            self.generator.set_state(torch.from_numpy(
+                np.array(train_state["rng"])))
 
     def epoch_lr(self, epoch_id: int) -> float:
         """Single-step LR decay (train_model.py:123-126)."""
