@@ -545,7 +545,11 @@ def scan_instantiations(log: str) -> dict:
         if m:
             dtype = "f32" if m.group(1) == "f" else "bf16"
             found[f"{dtype}_H{m.group(2)}_R{m.group(3)}"] = info
-    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        m = re.search(r"lstm_scan_backward_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            found[f"f32_backward_H{m.group(1)}_R{m.group(2)}"] = info
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32"),
+                       (torch.float32, "f32_backward")):
         for hidden in lstm_scan.RESIDENT_HIDDEN:
             for rows in lstm_scan.ROW_TILES[dtype]:
                 name = f"{key}_H{hidden}_R{rows}"
@@ -622,6 +626,62 @@ def time_scan(args, dtype_name: str) -> dict:
     res = {k: float(np.median(v)) for k, v in times.items()}
     res["bound_ms"], res["bound_by"] = scan_bound_ms(d, dtype_name,
                                                      x.element_size())
+    return res
+
+
+def scan_backward_bound_ms(d: int) -> tuple:
+    """(bound_ms, bound_by) of one float32 backward call at a train shape:
+    the gate product, the serial dg W_h^T, dW and dx (the gate math not
+    counted); x, h, dy, the kernel and the bias read once, dx, dW and
+    d bias written once."""
+    n = TRAIN_B * T
+    flops = 2 * n * 4 * H * (3 * d + 3 * H)
+    nbytes = (2 * n * d + 2 * n * H + 2 * (d + H) * 4 * H + 8 * H) * 4
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_scan_backward(args) -> dict:
+    """One float32 backward of K2 at a train shape (the gradients of x, the
+    kernel and the bias for one output gradient): the wrapper's (the gate
+    product, the backward kernel, dW, d bias and dx), the backward kernel
+    alone on those gates, the plain recompute the wrapper ran before it (the
+    plain forward under autograd and its backward), and cuDNN
+    ``nn.LSTM(D, 256, 1)``'s backward."""
+    import torch
+
+    from deepsignal_tpu_torch.ops.bilstm import (lstm_scan_plain,
+                                                 scan_gate_operand)
+    from deepsignal_tpu_torch.ops.cuda import lstm_scan
+
+    x, kernel, bias = inputs = [a.detach().requires_grad_(True) for a in args]
+    b, t, d = x.shape
+    out = lstm_scan.lstm_layer_scan(*inputs)
+    g = torch.randn(out.shape, device=out.device,
+                    generator=torch.Generator(out.device).manual_seed(31))
+    with torch.no_grad():
+        gates = torch.addmm(bias, scan_gate_operand(x, out, False),
+                            kernel).reshape(b, t, 4 * H)
+    library = cudnn_lstm([kernel.detach()], [bias.detach()], d)
+    x_library = x.detach().clone().requires_grad_(True)
+    y = library(x_library)[0]
+    calls = {
+        "backward_ms": lambda: torch.autograd.grad(out, inputs, g,
+                                                   retain_graph=True),
+        "backward_kernel_ms": lambda: lstm_scan.gate_grads_on_card(
+            gates, kernel.detach()[d:], g, False),
+        "backward_plain_ms": lambda: torch.autograd.grad(
+            lstm_scan_plain(*inputs), inputs, g),
+        "backward_library_ms": lambda: torch.autograd.grad(
+            y, [x_library, *library.parameters()], g, retain_graph=True)}
+    times = {k: [] for k in calls}
+    for _ in range(2):  # in turns, as in time_scan
+        for k, fn in calls.items():
+            times[k].append(cuda_ms(fn))
+    res = {k: float(np.median(v)) for k, v in times.items()}
+    res["backward_bound_ms"], res["backward_bound_by"] = \
+        scan_backward_bound_ms(d)
     return res
 
 
@@ -714,6 +774,8 @@ def check_scan(dtype_name: str, device) -> dict:
             shapes[key] = {"max_abs_err": err, "variant": variant}
         if b == TRAIN_B:
             timed[d] = time_scan(args, dtype_name)
+            if dtype == torch.float32:
+                timed[d].update(time_scan_backward(args))
             print(f"K2 {dtype_name} D{d}: {json.dumps(timed[d])}", flush=True)
     clusters = lstm_scan.active_clusters(H, dtype)
     plan = lstm_scan.scan_plan(TRAIN_B, H, dtype, clusters)
@@ -748,6 +810,11 @@ def check_scan(dtype_name: str, device) -> dict:
             "bound_ms_d3": timed[D_DENOISE]["bound_ms"],
             "bound_by_d3": timed[D_DENOISE]["bound_by"],
             "library_ms_d3": timed[D_DENOISE]["library_ms"],
+            **({f"{k}{suffix}": timed[d][k]
+                for d, suffix in ((H, ""), (D, "_d131"), (D_DENOISE, "_d3"))
+                for k in ("backward_ms", "backward_plain_ms",
+                          "backward_bound_ms", "backward_library_ms")}
+               if dtype == torch.float32 else {}),
             "times": {f"D{d}": v for d, v in timed.items()}, "tiles": tiles,
             "plan": plan, "active_clusters": at_once, "waves": waves,
             "cases": shapes}

@@ -84,6 +84,50 @@
 // products accumulate in float32; gate math is float32 (the sigmoid by
 // __expf and a reciprocal, tanh by the library); gate order i, j, f, o with
 // FORGET_BIAS 1.0 on f; the output is rounded to the storage type.
+//
+// Backward (float32, H 128 and 256).  The TPU kernel has no gradient of its
+// own (JAX differentiates the plain scan), so this one replaces none: it is
+// the gradient of the plain version in float32, which the wrapper otherwise
+// recomputes step by step under autograd (thousands of small launches a
+// train step).  The wrapper works out the gate pre-activations of every step
+// in one product, gates = [x_t, h_{t-1}] @ W + b over the saved output h, and
+// after this kernel the whole-sequence products dW = [x, h_{t-1}]^T dg,
+// d bias = sum dg and dx = dg W_x^T.  The kernel walks the scan backwards:
+//
+//   dh_t = dy_t + dg_{t+1} W_h^T                      (the serial part)
+//   dc_t = dh_t o_t (1 - tanh^2 c_t) + dc_{t+1} f_{t+1}
+//   dg_t = [dc_t j_t i_t (1 - i_t), dc_t i_t (1 - j_t^2),
+//           dc_t c_{t-1} f_t (1 - f_t), dh_t tanh c_t o_t (1 - o_t)]
+//
+// with "t + 1" the scan's next step.  The layout is the forward's: a cluster
+// of H / 32 CTAs owns a tile of BT rows for the whole scan, CTA k owns units
+// [32 k, 32 k + 32) and holds their four gate columns of W_h, now as
+// [unit][K][gate] so that lane l reads K-row l + 32 q as one float4.  First
+// each thread rebuilds c of its cells for every step, in the forward's
+// order, into a global scratch (its own cells only, padded rows included, so
+// no thread reads another's), while W_h lands.  Then per step a thread turns
+// dh of its cells into dg; the CTA's dg_t spans exactly its W_h columns, so
+// its product dg_t W_h^T is a partial dh over all H units, [BT, H], summed
+// over 4 x 32 columns.  Lane l of warp w holds rows [BT/8 w, +BT/8) of units
+// l + 32 q, and unit l + 32 q belongs to CTA q: it stores that partial into
+// CTA q's slot [row][sender][l] through distributed shared memory (a
+// reduce-scatter), and after one cluster barrier each owner adds its H / 32
+// slots.  The slots are double-buffered like the forward's h, and a warp's
+// rows of the buffer it has just read hold its dg_t for the product (it is
+// refilled only after the next barrier, which every thread of the cluster
+// reaches after its product).  A full [BT, 4H] dg_t exchanged to every CTA
+// would not fit: 327 KB at BT 40, double-buffered.
+//
+//   Shared memory of one CTA at H 256, BT 40: W_h slice 128 KB, slots
+//     [2][BT][8][32] f32 80 KB, one mbarrier: 213,000 bytes, the forward's
+//     own, so the forward's plan (tile and cluster) serves the backward; its
+//     tile is chosen with the backward's own `active_clusters`.
+//   Per step a CTA does 40 x 256 x 128 = 1.3 M FMA, as in the forward; each
+//     warp reads the W_h slice once (8 x 4 wavefronts of 128 bits per unit)
+//     and its rows of dg_t as broadcasts.  What bounds it is again latency:
+//     T serial steps of a product, the cell math and one cluster barrier.
+//   Its own bytes: gates and dg 2 x 35.7 MB at B 512, T 17, H 256, dy 8.9 MB,
+//     c written once and read once (8.9 MB each way), W_h once per cluster.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -665,6 +709,270 @@ int active_clusters(int H, int rows, int* out) {
   });
 }
 
+// ------------------------------------------------- resident backward, float32
+
+struct BackParams {
+  const float* gates;  // [B, T, 4H] pre-activations [x_t, h_{t-1}] @ W + b
+  const float* wh;     // [H, 4H] recurrent rows, TF layout
+  const float* dy;     // [B, T, H] gradient of the output
+  float* c;            // [tiles x BT, T, H] scratch: c of every cell and step
+  float* dg;           // [B, T, 4H] gradient of the pre-activations
+  int B, T, reverse;
+};
+
+// sigmoid as torch computes it (expf, a division): the backward's cost is
+// not in its gate math
+__device__ __forceinline__ float sigmoid_exact(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// The CTA's W_h slice into shared memory as [32 units][H][4 gates], so that
+// lane l reads the four gates of one unit at K-row l + 32 q as one float4.  A
+// warp copies 4 units of 8 K-rows of one gate: 16 contiguous bytes a K-row
+// from global memory, 8 banks of shared memory 4 times.
+template <int H>
+__device__ __forceinline__ void load_wh_by_unit(const float* wh, float* w,
+                                                int u0, uint32_t bar) {
+  static_assert(H * 128 % THREADS == 0, "whole copies a thread");
+#pragma unroll 8
+  for (int i = threadIdx.x; i < H * 128; i += THREADS) {
+    const int j = i >> 5;
+    const int u = ((j >> 2) & 7) * 4 + (i & 3);
+    const int k = (j >> 5) * 8 + ((i >> 2) & 7);
+    const int g = j & 3;
+    cp_async4(smem_u32(w + (u * H + k) * 4 + g),
+              wh + (size_t)k * 4 * H + g * H + u0 + u);
+  }
+  cp_async_arrive(bar);
+}
+
+// The four gate pre-activations of rows row0 + r (the last valid row in place
+// of rows >= B), unit u, time t.
+template <int H, int RPT>
+__device__ __forceinline__ void load_gates(float (&x)[RPT][4],
+                                           const BackParams& p, int row0,
+                                           int u, int t) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const float* src = p.gates +
+                       ((size_t)min(row0 + r, p.B - 1) * p.T + t) * 4 * H + u;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[r][g] = __ldg(src + g * H);
+  }
+}
+
+// What backward step s reads of this thread's cells: the gates and dy at the
+// scan position T - 1 - s, and c one position earlier (0 before the first).
+template <int H, int RPT>
+__device__ __forceinline__ void load_step(float (&gt)[RPT][4],
+                                          float (&dy)[RPT], float (&cp)[RPT],
+                                          const BackParams& p, const float* cs,
+                                          int row0, int u, int s) {
+  const int pos = p.T - 1 - s;
+  const int t = p.reverse ? p.T - 1 - pos : pos;
+  const int tp = p.reverse ? t + 1 : t - 1;
+  load_gates<H, RPT>(gt, p, row0, u, t);
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    dy[r] = __ldg(p.dy + ((size_t)min(row0 + r, p.B - 1) * p.T + t) * H + u);
+    // written by this thread in the sweep: an ordinary load
+    cp[r] = pos > 0 ? cs[((size_t)r * p.T + tp) * H] : 0.0f;
+  }
+}
+
+template <int H, int BT>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_scan_backward_kernel(const BackParams p) {
+  using C = Cfg<float, H, BT>;
+  constexpr int U = C::UNITS, NR = C::NR, RPT = BT / 8;
+  static_assert(U == 32 && NR >= 4, "lane l + 32 q is unit l of CTA q; a "
+                "row's slots hold its 4 x 32 dg");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* w = reinterpret_cast<float*>(smem_raw);  // [U][H][4], W_h slice
+  float* slots = w + H * C::COLS;                 // [2][BT][NR][U]
+  const uint32_t bar = smem_u32(slots + 2 * BT * H);
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tr0 = warp * RPT;                    // rows of the tile
+  const int row0 = blockIdx.y * BT + tr0;        // rows of the padded batch
+  const int u = rank * U + lane;                 // this thread's unit
+  if (threadIdx.x == 0) {
+    mbar_init(bar, THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  load_wh_by_unit<H>(p.wh, w, rank * U, bar);
+  cluster_arrive();  // this CTA runs: the others may store into it
+
+  // c of this thread's cells at every step, in the forward's order
+  float* cs = p.c + (size_t)row0 * p.T * H + u;  // row r, time t: (r T + t) H
+  {
+    float c[RPT], gt[RPT][4];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) c[r] = 0.0f;
+    load_gates<H, RPT>(gt, p, row0, u, p.reverse ? p.T - 1 : 0);
+#pragma unroll 1
+    for (int s = 0; s < p.T; ++s) {
+      const int t = p.reverse ? p.T - 1 - s : s;
+      const int sn = min(s + 1, p.T - 1);
+      float gn[RPT][4];
+      load_gates<H, RPT>(gn, p, row0, u, p.reverse ? p.T - 1 - sn : sn);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        c[r] = sigmoid_exact(gt[r][2] + FORGET_BIAS) * c[r] +
+               sigmoid_exact(gt[r][0]) * tanhf(gt[r][1]);
+        cs[((size_t)r * p.T + t) * H] = c[r];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) gt[r][g] = gn[r][g];
+      }
+    }
+  }
+
+  // this thread's partial dh of row tr0 + r, unit lane of CTA q, goes to
+  // CTA q's slot [tr0 + r][rank][lane]
+  uint32_t push[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q)
+    push[q] = map_rank(smem_u32(slots + tr0 * H + rank * U + lane), q);
+  float gt[RPT][4], dy[RPT], cp[RPT], ct[RPT], dcf[RPT];
+  load_step<H, RPT>(gt, dy, cp, p, cs, row0, u, 0);
+  const int t0 = p.reverse ? 0 : p.T - 1;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    ct[r] = cs[((size_t)r * p.T + t0) * H];
+    dcf[r] = 0.0f;  // dc_{t+1} f_{t+1}: nothing after the last step
+  }
+
+#pragma unroll 1
+  for (int s = 0; s < p.T; ++s) {
+    const int t = p.reverse ? s : p.T - 1 - s;
+    const int cur = s & 1;
+    float gn[RPT][4], dyn[RPT], cpn[RPT];
+    load_step<H, RPT>(gn, dyn, cpn, p, cs, row0, u, min(s + 1, p.T - 1));
+    // every CTA stored its partial dh of this step into slots cur (step 0:
+    // every CTA runs)
+    cluster_wait();
+    float* rows = slots + (cur * BT + tr0) * H;  // this warp's rows of cur
+    float dh[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      dh[r] = dy[r];
+      if (s > 0) {
+#pragma unroll
+        for (int q = 0; q < NR; ++q) dh[r] += rows[r * H + q * U + lane];
+      }
+    }
+    __syncwarp();  // the warp has read its rows of cur: they take its dg
+    float4 dg[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const float ig = sigmoid_exact(gt[r][0]), jg = tanhf(gt[r][1]);
+      const float fg = sigmoid_exact(gt[r][2] + FORGET_BIAS);
+      const float og = sigmoid_exact(gt[r][3]), tc = tanhf(ct[r]);
+      const float dc = dh[r] * og * (1.0f - tc * tc) + dcf[r];
+      dg[r] = make_float4(dc * jg * ig * (1.0f - ig), dc * ig * (1.0f - jg * jg),
+                          dc * cp[r] * fg * (1.0f - fg),
+                          dh[r] * tc * og * (1.0f - og));
+      dcf[r] = dc * fg;
+      if (row0 + r < p.B) {
+        float* out = p.dg + ((size_t)(row0 + r) * p.T + t) * 4 * H + u;
+        out[0] = dg[r].x;
+        out[H] = dg[r].y;
+        out[2 * H] = dg[r].z;
+        out[3 * H] = dg[r].w;
+      }
+    }
+    if (s + 1 < p.T) {  // the first step's dh is not needed
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        *reinterpret_cast<float4*>(rows + r * H + 4 * lane) = dg[r];
+      __syncwarp();
+      if (s == 0) mbar_wait(bar, 0);  // W_h has landed
+      float acc[RPT][NR];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+#pragma unroll
+        for (int q = 0; q < NR; ++q) acc[r][q] = 0.0f;
+#pragma unroll 2
+      for (int k = 0; k < U; ++k) {  // this CTA's units, four gates each
+        float4 wv[NR];
+#pragma unroll
+        for (int q = 0; q < NR; ++q)
+          wv[q] = *reinterpret_cast<const float4*>(w + (k * H + lane + 32 * q) * 4);
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const float4 d = *reinterpret_cast<const float4*>(rows + r * H + 4 * k);
+#pragma unroll
+          for (int q = 0; q < NR; ++q) {
+            float a = acc[r][q];
+            a = fmaf(d.x, wv[q].x, a);
+            a = fmaf(d.y, wv[q].y, a);
+            a = fmaf(d.z, wv[q].z, a);
+            a = fmaf(d.w, wv[q].w, a);
+            acc[r][q] = a;
+          }
+        }
+      }
+      // into slots cur ^ 1 of every CTA: read there in step s - 1, before
+      // the barrier waited for above
+      const uint32_t nb = (cur ^ 1) * 4 * BT * H;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+#pragma unroll
+        for (int q = 0; q < NR; ++q)
+          st_cluster(push[q] + nb + 4 * r * H, __float_as_uint(acc[r][q]));
+    }
+    cluster_arrive();
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      ct[r] = cp[r];
+      dy[r] = dyn[r];
+      cp[r] = cpn[r];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) gt[r][g] = gn[r][g];
+    }
+  }
+  if (p.T < 2) mbar_wait(bar, 0);  // no copy outlives the CTA
+  cluster_wait();  // no CTA leaves while another may store into it
+}
+
+template <int H, int BT>
+cudaError_t allow_backward_smem() {
+  static bool done = false;  // once per instantiation and process
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      lstm_scan_backward_kernel<H, BT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<float, H, BT>::SMEM);
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <int H, int BT>
+int launch_backward(const BackParams& p, int cluster, int smem,
+                    cudaStream_t stream) {
+  using C = Cfg<float, H, BT>;
+  if (cluster != C::NR || smem != C::SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_backward_smem<H, BT>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      resident_config<float, H, BT>(p.B, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, lstm_scan_backward_kernel<H, BT>, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int H, int BT>
+int active_backward(int* out) {
+  const cudaError_t err = allow_backward_smem<H, BT>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      resident_config<float, H, BT>(4096, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, lstm_scan_backward_kernel<H, BT>, &cfg);
+}
+
 // ---------------------------------------------------------------- streaming
 
 // acc[r][g] += sum_k hs[r][k] * w[k][g*H + j], k in [0, H).  hs rows are HP
@@ -854,6 +1162,38 @@ int ds_lstm_scan_active_clusters_f32(int H, int rows, int* out) {
 
 int ds_lstm_scan_active_clusters_bf16(int H, int rows, int* out) {
   return active_clusters<bf16>(H, rows, out);
+}
+
+// The backward of one float32 layer-direction at H 128 or 256: dg [B, T, 4H]
+// from the gate pre-activations gates [B, T, 4H] ([x_t, h_{t-1}] @ W + b,
+// without the forget bias), the recurrent rows wh [H, 4H] and the output's
+// gradient dy [B, T, H]; c is a scratch of [tiles x rows, T, H] floats.  The
+// plan is the forward's (rows, cluster and smem of scan_plan at H 128/256).
+int ds_lstm_scan_backward_f32(const void* gates, const void* wh,
+                              const void* dy, void* c, void* dg, int B, int T,
+                              int H, int reverse, int rows, int cluster,
+                              int smem, void* stream) {
+  if (B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  BackParams p;
+  p.gates = static_cast<const float*>(gates);
+  p.wh = static_cast<const float*>(wh);
+  p.dy = static_cast<const float*>(dy);
+  p.c = static_cast<float*>(c);
+  p.dg = static_cast<float*>(dg);
+  p.B = B;
+  p.T = T;
+  p.reverse = reverse;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_shape<float>(H, rows, [&](auto hc, auto bc) {
+    return launch_backward<decltype(hc)::value, decltype(bc)::value>(
+        p, cluster, smem, s);
+  });
+}
+
+int ds_lstm_scan_backward_active_clusters_f32(int H, int rows, int* out) {
+  return by_shape<float>(H, rows, [&](auto hc, auto bc) {
+    return active_backward<decltype(hc)::value, decltype(bc)::value>(out);
+  });
 }
 
 }  // extern "C"

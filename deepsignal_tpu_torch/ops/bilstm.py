@@ -26,6 +26,10 @@ One layer-direction:
   dtype, h/c state in float32, h rounded to the input dtype before every
   product, products summed in float32, the output in the input dtype.  In
   float32 it equals ``lstm_layer``.
+- ``lstm_scan_backward_plain`` = the plain version of the scan's backward
+  kernel: the gradient of ``lstm_scan_plain`` in float32 from its output,
+  through ``scan_backward`` (the products around the kernel, which the
+  wrapper shares) and ``lstm_gate_grads_plain`` (the kernel's serial part).
 """
 
 from __future__ import annotations
@@ -121,6 +125,75 @@ def lstm_scan_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         h, c = lstm_cell_step(h, c, xp[:, ti].float() + _rounded(h, dt) @ w_h)
         outs[ti] = h
     return torch.stack(outs, dim=1).to(dt)
+
+
+def scan_gate_operand(x: torch.Tensor, h: torch.Tensor,
+                      reverse: bool) -> torch.Tensor:
+    """[x_t, h_{t-1}] of every step of a scan whose outputs are h (by
+    absolute time), [B * T, D + H]; h_{t-1} is 0 at the scan's first step
+    (t = 0, or T - 1 with ``reverse``)."""
+    b, t, d = x.shape
+    earlier = (torch.nn.functional.pad(h[:, 1:], (0, 0, 0, 1)) if reverse
+               else torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0)))
+    return torch.cat([x, earlier], dim=2).reshape(b * t, -1)
+
+
+def scan_backward(x, kernel, bias, h, grad_out, reverse, gate_grads,
+                  needs=(True, True, True)):
+    """The float32 gradient of a scan (x, kernel, bias) -> h with respect
+    to the inputs ``needs`` names (None for the others), given its output h
+    and the output's gradient: the gate pre-activations of every step in one
+    product over [x_t, h_{t-1}], their gradient dg [B, T, 4H] by
+    ``gate_grads(gates, w_h, grad_out, reverse)`` (the serial part), then
+    the whole-sequence products."""
+    b, t, d = x.shape
+    a = scan_gate_operand(x, h, reverse)
+    gates = torch.addmm(bias, a, kernel).reshape(b, t, -1)
+    dg = gate_grads(gates, kernel[d:], grad_out, reverse).reshape(b * t, -1)
+    return (dg.mm(kernel[:d].t()).reshape(b, t, d) if needs[0] else None,
+            a.t().mm(dg) if needs[1] else None,
+            dg.sum(0) if needs[2] else None)
+
+
+def lstm_gate_grads_plain(gates, w_h, grad_out, reverse=False):
+    """The gradient of a float32 scan's gate pre-activations, [B, T, 4H],
+    from the pre-activations (without the forget bias), W_h and the
+    gradient of the output, walking the scan backwards:
+    dh_t = dy_t + dg_{t+1} W_h^T, dc_t = dh_t o_t (1 - tanh^2 c_t)
+    + dc_{t+1} f_{t+1}, and dg_t from dc_t, dh_t and the gates (the plain
+    version of the backward kernel in ``csrc/lstm_scan.cu``)."""
+    b, t, g = gates.shape
+    i, j, f, o = gates.chunk(4, dim=-1)
+    i, j, o = torch.sigmoid(i), torch.tanh(j), torch.sigmoid(o)
+    f = torch.sigmoid(f + FORGET_BIAS)
+    order = list(range(t - 1, -1, -1) if reverse else range(t))
+    c = torch.empty_like(grad_out)
+    prev = grad_out.new_zeros(b, g // 4)
+    for ti in order:
+        prev = f[:, ti] * prev + i[:, ti] * j[:, ti]
+        c[:, ti] = prev
+    tc = torch.tanh(c)
+    dg = torch.empty_like(gates)
+    dh_next = dc_next = torch.zeros_like(prev)  # dg_{t+1} W_h^T, dc f_{t+1}
+    for n, ti in enumerate(reversed(order)):
+        dh = grad_out[:, ti] + dh_next
+        dc = dh * o[:, ti] * (1 - tc[:, ti] ** 2) + dc_next
+        c_prev = c[:, order[-2 - n]] if n + 1 < t else torch.zeros_like(dc)
+        it, jt, ft, ot = i[:, ti], j[:, ti], f[:, ti], o[:, ti]
+        dg[:, ti] = torch.cat([dc * jt * it * (1 - it), dc * it * (1 - jt * jt),
+                               dc * c_prev * ft * (1 - ft),
+                               dh * tc[:, ti] * ot * (1 - ot)], dim=1)
+        dc_next = dc * ft
+        dh_next = dg[:, ti] @ w_h.t()
+    return dg
+
+
+def lstm_scan_backward_plain(x, kernel, bias, h, grad_out, reverse=False):
+    """(dx, dkernel, dbias) of a float32 ``lstm_scan_plain`` with output h
+    for the output's gradient ``grad_out``: the plain version of the
+    backward kernel with the products around it."""
+    return scan_backward(x, kernel, bias, h, grad_out, reverse,
+                         lstm_gate_grads_plain)
 
 
 def bilstm_encoder_fused_plain(x, kernels_fw, biases_fw, kernels_bw,

@@ -33,10 +33,17 @@ The source comment in ``lstm_scan.cu`` has the arithmetic.
 
 A CPU tensor takes the plain version (``ops.bilstm.lstm_scan_plain``); a
 CUDA tensor launches a kernel or raises.  The gradient is a
-``torch.autograd.Function`` whose backward recomputes through
-``lstm_scan_plain`` under autograd: the JAX package defines no gradient of
-its own for this kernel, so the gradient is that of the function the
-forward computes.  The backward is no kernel.
+``torch.autograd.Function``: the JAX package defines no gradient of its own
+for this kernel, so the gradient is that of the function the forward
+computes.  Where ``backward_takes_kernel`` holds (a CUDA float32 tensor at H
+128 or 256, the resident shapes) the forward saves its output and the
+backward is a third kernel in the same library, between two torch products
+(``ops.bilstm.scan_backward``: the gate pre-activations of every step at
+once from the saved output, then dW, d bias and dx over the whole
+sequence); its plain version is ``ops.bilstm.lstm_scan_backward_plain``.
+Every other case (bfloat16, other H, the CPU) recomputes through
+``lstm_scan_plain`` under autograd.  The process's record counts each
+backward on the card as ``lstm.backward_kernel`` or ``lstm.backward_plain``.
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ import functools
 
 import torch
 
-from ..bilstm import input_product, lstm_scan_plain
+from ...core.logging import count
+from ..bilstm import input_product, lstm_scan_plain, scan_backward
 from .lstm import recompute_grads
 
 LIBRARY = "lstm_scan"
@@ -141,14 +149,16 @@ def l2_weight_bytes(plan: dict, steps: int, hidden: int,
 
 
 def active_clusters(hidden: int, dtype: torch.dtype,
-                    rows: int | None = None) -> int:
-    """Clusters of the resident kernel the card runs at once (one wave),
-    from ``cudaOccupancyMaxActiveClusters``, for the batch tile ``rows``
-    (by default the largest, which has the most shared memory); builds the
+                    rows: int | None = None, backward: bool = False) -> int:
+    """Clusters of the resident kernel (with ``backward`` the float32
+    backward kernel) the card runs at once (one wave), from
+    ``cudaOccupancyMaxActiveClusters``, for the batch tile ``rows`` (by
+    default the largest, which has the most shared memory); builds the
     library."""
     from .build import load_library
+    kind = "backward_" if backward else ""
     fn = getattr(load_library(LIBRARY),
-                 f"ds_lstm_scan_active_clusters_{_SUFFIX[dtype]}")
+                 f"ds_lstm_scan_{kind}active_clusters_{_SUFFIX[dtype]}")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
@@ -159,9 +169,10 @@ def active_clusters(hidden: int, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=None)
-def _clusters_at_once(hidden: int, dtype: torch.dtype, device: int) -> int:
+def _clusters_at_once(hidden: int, dtype: torch.dtype, device: int,
+                      backward: bool) -> int:
     with torch.cuda.device(device):
-        return active_clusters(hidden, dtype)
+        return active_clusters(hidden, dtype, backward=backward)
 
 
 def _check(x, kernel, bias):
@@ -187,9 +198,12 @@ def _check(x, kernel, bias):
 
 
 def card_plan(batch: int, hidden: int, dtype: torch.dtype,
-              device: torch.device) -> dict:
-    """``scan_plan`` with the cluster count of the card ``device``."""
-    at_once = (_clusters_at_once(hidden, dtype, device.index or 0)
+              device: torch.device, backward: bool = False) -> dict:
+    """``scan_plan`` with the cluster count of the card ``device`` for the
+    forward kernel, or with ``backward`` for the backward kernel, whose
+    shared memory at a tile is the forward's (the slots of its partial dh,
+    [2][rows][H] float32, are the size of the forward's h)."""
+    at_once = (_clusters_at_once(hidden, dtype, device.index or 0, backward)
                if hidden in RESIDENT_HIDDEN else None)
     return _plan(batch, hidden, dtype, at_once)
 
@@ -234,17 +248,74 @@ def _launch(x, kernel, bias, reverse: bool):
                            card_plan(b, h, x.dtype, x.device))
 
 
+@functools.lru_cache(maxsize=None)
+def _backward_fn():
+    from .build import load_library
+    fn = load_library(LIBRARY).ds_lstm_scan_backward_f32
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def backward_takes_kernel(device_type: str, dtype: torch.dtype,
+                          hidden: int) -> bool:
+    """Whether a scan's backward runs the backward kernel: float32 on the
+    card at the resident H.  Every other case recomputes through the plain
+    version."""
+    return (device_type == "cuda" and dtype == torch.float32
+            and hidden in RESIDENT_HIDDEN)
+
+
+def gate_grads_on_card(gates, w_h, grad_out, reverse: bool):
+    """The backward kernel: dg [B, T, 4H] from the gate pre-activations
+    ``gates`` [B, T, 4H], ``w_h`` [H, 4H] and ``grad_out`` [B, T, H], CUDA
+    float32 and contiguous, launched with the backward's ``card_plan``
+    (``ops.bilstm.lstm_gate_grads_plain`` is its plain version)."""
+    b, t, g = gates.shape
+    plan = card_plan(b, g // 4, gates.dtype, gates.device, backward=True)
+    dg = torch.empty_like(gates)
+    # c of every cell and step, the padded rows of the last tile included
+    c = torch.empty(plan["grid"][1] * plan["rows"], t, g // 4,
+                    dtype=gates.dtype, device=gates.device)
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _backward_fn()(gates.data_ptr(), w_h.data_ptr(),
+                             grad_out.data_ptr(), c.data_ptr(), dg.data_ptr(),
+                             b, t, g // 4, int(reverse), plan["rows"],
+                             plan["cluster"], plan["smem_bytes"], stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_scan backward kernel launch failed: "
+                           f"cudaError {err}")
+    lstm_layer_scan.backward_launches += 1
+    return dg
+
+
 class _Scan(torch.autograd.Function):
-    """The kernel forward, the plain version's gradient."""
+    """The kernel forward; the backward kernel or the plain version's
+    gradient, by ``backward_takes_kernel``."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, reverse):
-        ctx.save_for_backward(x, kernel, bias)
+        out = _launch(x, kernel, bias, reverse)
         ctx.reverse = reverse
-        return _launch(x, kernel, bias, reverse)
+        ctx.kernel_backward = backward_takes_kernel(
+            x.device.type, x.dtype, kernel.shape[1] // 4)
+        if ctx.kernel_backward:
+            ctx.save_for_backward(x, kernel, bias, out)
+        else:
+            ctx.save_for_backward(x, kernel, bias)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
+        if ctx.kernel_backward:
+            count("lstm.backward_kernel", 1)
+            return (*scan_backward(*ctx.saved_tensors, grad_out.contiguous(),
+                                   ctx.reverse, gate_grads_on_card,
+                                   ctx.needs_input_grad[:3]), None)
+        if grad_out.is_cuda:
+            count("lstm.backward_plain", 1)
         return (*recompute_grads(
             lambda x, k, b: lstm_scan_plain(x, k, b, ctx.reverse), ctx,
             grad_out), None)
@@ -259,6 +330,7 @@ def lstm_layer_scan(x, kernel, bias, reverse: bool = False):
 
 
 # launches of the kernels (not of the plain version) since the last reset,
-# in all and by variant
+# in all and by variant, and of the backward kernel
 lstm_layer_scan.launches = 0
 lstm_layer_scan.launches_by_variant = {"resident": 0, "streaming": 0}
+lstm_layer_scan.backward_launches = 0

@@ -184,16 +184,36 @@ def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
         lstm_layer_scan(x.transpose(0, 1).contiguous().transpose(0, 1), k, b)
 
 
+def _counted(name, t0):
+    import time
+
+    from deepsignal_tpu_torch.core.logging import RECORD
+    return sum(RECORD.counted(name, t0, time.perf_counter()))
+
+
+# the fused encoder at the call shape; the scan at the train shapes (layer
+# 0 of both models at depths 3 and 131, layers 1-2 at 256), both
+# directions, at the train batch and at a batch that is a multiple of no
+# batch tile
+GRADIENT_CASES = [("fused", (512, 17, 131, 256), False)] + [
+    ("scan", (b, 17, d, 256), reverse) for b in (512, 500)
+    for d in (3, 131, 256) for reverse in (False, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["fused", "scan"])
+@pytest.mark.parametrize("kernel, shape, reverse", GRADIENT_CASES)
 def test_kernel_gradients_match_autograd_through_plain(cuda_device, kernel,
-                                                       dtype):
-    """Each Function's backward is autograd through its plain version, so
-    with a loss linear in the output the gradients are the same numbers."""
+                                                       shape, reverse, dtype):
+    """Each Function's gradient is that of its plain version: the fused
+    encoder's and the bfloat16 scan's backward is autograd through it; the
+    float32 scan's is the backward kernel (one launch, one
+    ``lstm.backward_kernel`` count), the same function summed in another
+    order.  With a loss linear in the output both get the same
+    cotangent."""
+    import time
     if kernel == "fused":
-        x, kf, bf, kb, bb = _encoder_case(11, 512, 17, 131, 256, dtype,
-                                          cuda_device)
+        x, kf, bf, kb, bb = _encoder_case(11, *shape, dtype, cuda_device)
         arrays = [x, *kf, *bf, *kb, *bb]
 
         def fn(x, *p):
@@ -202,25 +222,54 @@ def test_kernel_gradients_match_autograd_through_plain(cuda_device, kernel,
         def plain(x, *p):
             return bilstm_encoder_plain(x, p[0:3], p[3:6], p[6:9], p[9:12])
     else:
-        arrays = list(_scan_case(12, 512, 17, 131, 256, dtype, cuda_device))
+        arrays = list(_scan_case(12, *shape, dtype, cuda_device))
 
         def fn(*a):
-            return lstm_layer_scan(*a, reverse=True)
+            return lstm_layer_scan(*a, reverse=reverse)
 
         def plain(*a):
-            return lstm_scan_plain(*a, reverse=True)
+            return lstm_scan_plain(*a, reverse=reverse)
     grads = []
     for f in (fn, plain):
         args = [a.detach().clone().requires_grad_(True) for a in arrays]
         out = f(*args)
         weights = torch.linspace(-1, 1, out.numel(), device=cuda_device)
+        launches, t0 = lstm_layer_scan.backward_launches, time.perf_counter()
         (out.float() * weights.reshape(out.shape)).sum().backward()
         grads.append([a.grad.float() for a in args])
-    # the same arithmetic on one card: equal up to the order of sums that
-    # the libraries may change between calls
+        if f is fn and kernel == "scan":
+            by_kernel = dtype == torch.float32
+            assert lstm_layer_scan.backward_launches - launches == by_kernel
+            assert _counted("lstm.backward_kernel", t0) == by_kernel
+            assert _counted("lstm.backward_plain", t0) == (not by_kernel)
+    # the same function on one card: equal up to the order of sums
     for got, want in zip(*grads):
         scale = want.abs().max().item()
         assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_encoder_train_step_launches_six_backward_kernels(cuda_device):
+    """A float32 train step of the encoder with live dropout: six scan
+    launches forward and six backward kernels, no plain recompute."""
+    import time
+    enc = layers.BiLSTMEncoder(131, 256, 3).to(cuda_device)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.uniform_(-0.07, 0.07)
+    x = torch.randn(512, 17, 131, device=cuda_device, requires_grad=True)
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    scans, backward = (lstm_layer_scan.launches,
+                       lstm_layer_scan.backward_launches)
+    t0 = time.perf_counter()
+    enc(x, train=True, keep_prob=0.5, generator=gen).square().sum().backward()
+    torch.cuda.synchronize()
+    assert lstm_layer_scan.launches - scans == 6
+    assert lstm_layer_scan.backward_launches - backward == 6
+    assert _counted("lstm.backward_kernel", t0) == 6
+    assert _counted("lstm.backward_plain", t0) == 0
+    for p in (x, *enc.parameters()):
+        assert bool(torch.isfinite(p.grad).all())
 
 
 @pytest.mark.cuda

@@ -1,8 +1,12 @@
 """The port's per-layer scan (K2's plain version and wrapper) and the
 autograd Functions of both LSTM kernels, against deepsignal_tpu: the Pallas
 scan kernel in interpret mode, ``lstm_layer`` and ``bilstm_encoder_xla`` and
-their JAX gradients.  The CUDA kernels themselves are held against their
-plain versions on the card, in tests/test_torch_cuda.py."""
+their JAX gradients; the plain version of K2's backward kernel and the
+wrapper's code around it against autograd through the plain scan.  The CUDA
+kernels themselves are held against their plain versions on the card, in
+tests/test_torch_cuda.py."""
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -13,8 +17,10 @@ import torch
 from deepsignal_tpu.ops.bilstm import bilstm_encoder_xla
 from deepsignal_tpu.ops.bilstm import lstm_layer as jax_lstm_layer
 from deepsignal_tpu.ops.pallas.lstm import lstm_layer_pallas
+from deepsignal_tpu_torch.core.logging import RECORD
 from deepsignal_tpu_torch.models.layers import BiLSTMEncoder
 from deepsignal_tpu_torch.ops import bilstm
+from deepsignal_tpu_torch.ops.cuda import lstm_scan
 from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
 from deepsignal_tpu_torch.ops.cuda.lstm_scan import lstm_layer_scan
 
@@ -151,6 +157,87 @@ def test_autograd_functions_equal_autograd_through_plain(kernel, dtype):
         grads.append([a.grad for a in args])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# (batch, steps, depth, hidden): the encoder's three layer-0 and upper
+# depths at both resident H, at a batch that is a multiple of no batch tile
+# (16, 32, 40), and one step alone
+BACKWARD_SHAPES = [(45, 17, d, h) for h in (256, 128) for d in (3, 131, 256)]
+BACKWARD_SHAPES.append((7, 1, 5, 128))
+
+
+def _max_rel_gap(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+def test_scan_backward_plain_matches_autograd_through_the_plain_scan(
+        shape, reverse):
+    """The backward kernel's plain version (the gates again from the saved
+    output, the serial walk, the products) against autograd through
+    lstm_scan_plain: float32 sums in another order, so within 1e-5 of each
+    gradient's largest value, the card test's tolerance."""
+    b, t, d, h = shape
+    args = _torch(_layer_case(13, b, t, d, h), grad=True)
+    out = bilstm.lstm_scan_plain(*args, reverse=reverse)
+    g = torch.from_numpy(np.random.default_rng(14).normal(
+        0, 1, out.shape).astype(np.float32))
+    out.backward(g)
+    got = bilstm.lstm_scan_backward_plain(*(a.detach() for a in args),
+                                          out.detach(), g, reverse)
+    for a, grad, name in zip(args, got, ("x", "kernel", "bias")):
+        assert grad.shape == a.shape, name
+        assert _max_rel_gap(grad, a.grad) <= 1e-5, name
+
+
+@pytest.mark.parametrize("device_type, dtype, hidden, takes", [
+    ("cuda", torch.float32, 256, True), ("cuda", torch.float32, 128, True),
+    ("cuda", torch.bfloat16, 256, False), ("cuda", torch.bfloat16, 128, False),
+    ("cuda", torch.float32, 100, False), ("cuda", torch.float32, 512, False),
+    ("cpu", torch.float32, 256, False)])
+def test_scan_backward_takes_the_kernel_only_in_float32_on_the_card(
+        device_type, dtype, hidden, takes):
+    assert lstm_scan.backward_takes_kernel(device_type, dtype, hidden) is takes
+
+
+def _counted(name, t0):
+    return sum(RECORD.counted(name, t0, time.perf_counter()))
+
+
+@pytest.mark.parametrize("needs", [(True, True, True), (False, True, True),
+                                   (True, False, False)])
+def test_scan_wrapper_backward_around_the_kernel(monkeypatch, needs):
+    """The wrapper's kernel backward with the kernel's plain version in the
+    kernel's place (the CPU has no kernel): the gradients of autograd
+    through lstm_scan_plain, of the inputs that ask for one only, and one
+    ``lstm.backward_kernel`` count per backward."""
+    monkeypatch.setattr(lstm_scan, "backward_takes_kernel",
+                        lambda *a: True)
+    monkeypatch.setattr(lstm_scan, "gate_grads_on_card",
+                        bilstm.lstm_gate_grads_plain)
+    case = _layer_case(15, 11, 6, 5, 16)
+    grads, counts = [], []
+    for f in (lstm_layer_scan, bilstm.lstm_scan_plain):
+        args = [a.requires_grad_(need) for a, need in zip(_torch(case), needs)]
+        t0 = time.perf_counter()
+        out = f(*args, reverse=True)
+        out.backward(torch.linspace(-1, 1, out.numel()).reshape(out.shape))
+        grads.append([a.grad for a in args])
+        counts.append(_counted("lstm.backward_kernel", t0))
+    assert counts == [1, 0]
+    for got, want, need in zip(*grads, needs):
+        assert (got is None) is (not need)
+        if need:
+            assert _max_rel_gap(got, want) <= 1e-5
+
+
+def test_scan_backward_on_the_cpu_counts_neither_path():
+    t0 = time.perf_counter()
+    args = _torch(_layer_case(16, 4, 3, 2, 4), grad=True)
+    lstm_layer_scan(*args).sum().backward()
+    assert _counted("lstm.backward_kernel", t0) == 0
+    assert _counted("lstm.backward_plain", t0) == 0
 
 
 def test_scan_gradient_skips_inputs_without_grad():

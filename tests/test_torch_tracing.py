@@ -31,7 +31,8 @@ from tests import torch_tiny as tt
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "deepsignal_tpu_torch"
-PREFIXES = ("pipeline.", "reader.", "caller.", "model.", "trainer.")
+PREFIXES = ("pipeline.", "reader.", "caller.", "model.", "trainer.",
+            "lstm.")
 # the ranges the benchmark's harness opens around the objects it drives
 HARNESS_RANGES = {"read_wait", "dispatch", "collect", "forward", "encoder",
                   "inception", "head", "step", "resolve", "stage"}
