@@ -18,6 +18,13 @@ PyTorch's defaults, the TF rule is written out:
   ``torch.Generator``.
 - parameters stay float32 and are cast to the input dtype at use.
 
+On the card, an inference forward of ``InceptionNet`` with autograd off
+(``graph_takes``) replays a CUDA graph of its own eager forward, captured
+once per input shape, dtype, device and parameter storage: one launch in
+place of ~1,700, the same kernels and the same bits.  Training, autograd
+and the CPU run eagerly.  The process's record counts each inference
+forward on the card as ``inception.graph_replay`` or ``inception.eager``.
+
 Modules take ``train`` (and ``keep_prob``, ``generator``) as arguments, as
 the flax modules do, and ignore ``nn.Module.training``.  Parameters are
 created empty; ``models.deepsignal.init_weights`` fills them.
@@ -35,12 +42,14 @@ axis fc1's output rows are sharded and its activation all-gathered.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.logging import count
 from ..ops.cuda.lstm import bilstm_encoder_fused, kernel_takes
 from ..ops.cuda.lstm_scan import lstm_layer_scan
 from ..parallel.mesh import local_block, model_parallel_linear, sum_over_data
@@ -158,6 +167,18 @@ class TFBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.mesh = None
+        self._eps = {}
+
+    def _epsilon(self, dtype: torch.dtype, device: torch.device):
+        """epsilon as a 0-d tensor of ``dtype`` on ``device``, rounded to
+        the dtype before it is added, made once per dtype and device by a
+        fill on the device: a tensor built from a Python float would be a
+        blocking host-to-device copy, a stream sync in every forward."""
+        eps = self._eps.get((dtype, device))
+        if eps is None:
+            eps = self._eps[(dtype, device)] = torch.full(
+                (), self.epsilon, dtype=dtype, device=device)
+        return eps
 
     def _global_stats(self, x: torch.Tensor):
         """The global batch's mean and biased variance over (B, L): sums
@@ -185,7 +206,7 @@ class TFBatchNorm(nn.Module):
         else:
             mean = self.mean.to(dt)[:, None]
             var = self.var.to(dt)[:, None]
-        inv = torch.rsqrt(var + var.new_tensor(self.epsilon))
+        inv = torch.rsqrt(var + self._epsilon(dt, x.device))
         return (x - mean) * (inv * self.scale.to(dt)[:, None]) \
             + self.bias.to(dt)[:, None]
 
@@ -246,9 +267,26 @@ class InceptionBlock(nn.Module):
         return torch.cat([b1, b2, b3, b4, b5], dim=1)
 
 
+GRAPHS_KEPT = 4   # captured forwards an InceptionNet keeps, newest used
+
+
+def graph_takes(device_type: str, train: bool, grad_enabled: bool) -> bool:
+    """Whether ``InceptionNet.forward`` replays a CUDA graph: an inference
+    forward on the card with autograd off (``no_grad``,
+    ``inference_mode``).  Training, autograd and the CPU run eagerly."""
+    return device_type == "cuda" and not train and not grad_enabled
+
+
 class InceptionNet(nn.Module):
     """Signal-branch CNN (layers.py:176-239): [B, 1, S] -> [B, L * C]
-    flattened L-major, as JAX flattens [B, L, C]."""
+    flattened L-major, as JAX flattens [B, L, C].
+
+    Where ``graph_takes`` holds, the forward replays a CUDA graph of the
+    eager forward, captured at the first such call of each key: the
+    input's shape, dtype and device and the address of every parameter and
+    buffer.  So a tensor replaced (``load_state_dict(..., assign=True)``,
+    ``.to()``) makes a new capture, while an update in place shows at the
+    next replay.  The newest ``GRAPHS_KEPT`` graphs are kept."""
 
     def __init__(self, signal_len: int, times: int = 16,
                  blocks: tuple = (3, 5, 3)):
@@ -268,8 +306,23 @@ class InceptionNet(nn.Module):
                 ch = 15 * times
                 idx += 1
         self.out_dim = length * ch
+        # (the module's table, name) of every parameter and buffer: their
+        # addresses are part of a graph's key (walking ``parameters()`` on
+        # every forward would cost the host ~8x as much)
+        self._slots = [(table, name) for m in self.modules()
+                       for table in (m._parameters, m._buffers)
+                       for name in table]
+        self._graphs = OrderedDict()
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if graph_takes(x.device.type, train, torch.is_grad_enabled()):
+            count("inception.graph_replay", 1)
+            return self._replay(x)
+        if x.is_cuda and not train:
+            count("inception.eager", 1)
+        return self._eager(x, train)
+
+    def _eager(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x = self.conv_layer1(x, train)
         x = max_pool_same(x, 3, 2)
         x = self.conv_layer3(self.conv_layer2(x, train), train)
@@ -282,6 +335,42 @@ class InceptionNet(nn.Module):
                 idx += 1
         x = F.avg_pool1d(x, 7, 1, padding=3, count_include_pad=False)
         return x.transpose(1, 2).reshape(x.shape[0], -1)
+
+    def _replay(self, x: torch.Tensor) -> torch.Tensor:
+        """The eager forward's output through the key's graph: ``x`` copied
+        into the graph's input, one replay, the output cloned so that the
+        next replay leaves it be."""
+        key = (tuple(x.shape), x.dtype, x.device,
+               tuple(table[name].data_ptr() for table, name in self._slots))
+        with torch.inference_mode():
+            entry = self._graphs.pop(key, None)
+            if entry is None:
+                entry = self._capture(x)
+                while len(self._graphs) >= GRAPHS_KEPT:
+                    self._graphs.popitem(last=False)
+            self._graphs[key] = entry
+            graph, static_x, static_out = entry
+            static_x.copy_(x)
+            graph.replay()
+            return static_out.clone()
+
+    def _capture(self, x: torch.Tensor) -> tuple:
+        """(graph, its input, its output) of the eager inference forward at
+        x's shape, dtype and device: one warm-up on a side stream (cuDNN's
+        plans, the epsilons), then the capture, as ``torch.cuda.graphs``
+        documents."""
+        with torch.cuda.device(x.device):
+            static_x = x.contiguous().clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._eager(static_x, False)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: a trainer's staging thread may copy meanwhile
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = self._eager(static_x, False)
+        return graph, static_x, static_out
 
 
 class Dense(nn.Module):

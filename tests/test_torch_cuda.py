@@ -571,3 +571,207 @@ def test_call_freq_on_the_card_calls(cuda_device, tmp_path):
     assert sum(int(r[8]) for r in freq) == tt.N_ROWS
     assert sum(int(r[6]) for r in freq) == sum(labels)
     assert [int(r[1]) for r in freq] == sorted(int(r[1]) for r in freq)
+
+
+# --------------------------------------------------------------------------
+# InceptionNet's CUDA graph: an inference forward with autograd off replays
+# a graph of the eager forward (``layers.graph_takes``)
+
+
+def _inception(device, seed=0):
+    """The published InceptionNet (360 signals, x16, blocks 3/5/3) with
+    seeded weights and batch-norm statistics away from zero and one."""
+    net = layers.InceptionNet(360)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in net.state_dict(keep_vars=True).items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("scale", "var"):
+                t.uniform_(0.5, 2.0, generator=gen)
+            elif leaf in ("bias", "mean"):
+                t.normal_(0.0, 0.3, generator=gen)
+            else:
+                t.normal_(0.0, t[0].numel() ** -0.5, generator=gen)
+    return net.to(device)
+
+
+def _signals(batch, dtype, device, seed, length=360):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(batch, 1, length, generator=gen).to(device, dtype)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _paths(t0):
+    return (_counted("inception.graph_replay", t0),
+            _counted("inception.eager", t0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [4096, 37])
+def test_inception_graph_replay_equals_eager_bits(cuda_device, dtype, batch):
+    """The capture's first replay and a later one give the eager forward's
+    bits: the same cuDNN and PyTorch kernels, launched from a graph."""
+    net = _inception(cuda_device)
+    x = _signals(batch, dtype, cuda_device, 1)
+    with torch.inference_mode():
+        want = net._eager(x, False)
+        got = net(x)
+        again = net(x)
+    assert len(net._graphs) == 1
+    assert _same_bits(got, want) and _same_bits(again, want)
+
+
+@pytest.mark.cuda
+def test_inception_graph_outputs_held_at_once_stay_distinct(cuda_device):
+    net = _inception(cuda_device)
+    x1, x2 = (_signals(64, torch.bfloat16, cuda_device, s) for s in (2, 3))
+    with torch.inference_mode():
+        want1, want2 = net._eager(x1, False), net._eager(x2, False)
+        got1 = net(x1)
+        got2 = net(x2)
+    assert got1.data_ptr() != got2.data_ptr()
+    assert _same_bits(got1, want1) and _same_bits(got2, want2)
+    assert not torch.equal(got1, got2)
+
+
+@pytest.mark.cuda
+def test_inception_graph_sees_parameters_changed_in_place(cuda_device):
+    """An in-place update (an optimizer's step, batch norm's running
+    statistics) shows at the next replay, with no new capture."""
+    net = _inception(cuda_device)
+    x = _signals(64, torch.bfloat16, cuda_device, 4)
+    with torch.inference_mode():
+        before = net(x)
+    with torch.no_grad():
+        net.conv_layer1.weight.mul_(1.5)
+        net.incp_layer2.branch2_conv0b.bn.mean.add_(0.25)
+    with torch.inference_mode():
+        got = net(x)
+        want = net._eager(x, False)
+    assert len(net._graphs) == 1
+    assert _same_bits(got, want) and not torch.equal(got, before)
+
+
+@pytest.mark.cuda
+def test_inception_graph_recaptures_for_assigned_parameters(cuda_device):
+    """``load_state_dict(..., assign=True)`` puts new tensors in place: the
+    next forward captures anew and reads them."""
+    net = _inception(cuda_device)
+    x = _signals(64, torch.bfloat16, cuda_device, 5)
+    with torch.inference_mode():
+        before = net(x)
+    state = {k: v.clone() * (1.25 if k.endswith("weight") else 1.0)
+             for k, v in net.state_dict().items()}
+    net.load_state_dict(state, assign=True)
+    with torch.inference_mode():
+        got = net(x)
+        want = net._eager(x, False)
+    assert len(net._graphs) == 2
+    assert _same_bits(got, want) and not torch.equal(got, before)
+
+
+@pytest.mark.cuda
+def test_inception_graph_cache_keeps_the_newest(cuda_device):
+    net = _inception(cuda_device)
+    with torch.inference_mode():
+        for batch in range(8, 8 + layers.GRAPHS_KEPT + 1):
+            net(_signals(batch, torch.bfloat16, cuda_device, batch))
+    assert [k[0][0] for k in net._graphs] == list(
+        range(9, 9 + layers.GRAPHS_KEPT))
+
+
+@pytest.mark.cuda
+def test_inception_training_and_autograd_never_replay(cuda_device):
+    """Training forwards run eagerly and are not counted; an inference
+    forward with autograd on runs eagerly and counts as ``eager``."""
+    import time
+    net = _inception(cuda_device)
+    x = _signals(64, torch.float32, cuda_device, 6)
+    t0 = time.perf_counter()
+    net(x, train=True).sum().backward()
+    with torch.no_grad():
+        net(x, train=True)
+    assert _paths(t0) == (0, 0)
+    t0 = time.perf_counter()
+    got = net(x)
+    assert got.requires_grad
+    assert _paths(t0) == (0, 1)
+    assert len(net._graphs) == 0
+
+
+@pytest.mark.cuda
+def test_inception_counts_each_inference_forward_by_path(cuda_device):
+    import time
+    net = _inception(cuda_device)
+    x = _signals(64, torch.bfloat16, cuda_device, 7)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        net(x)
+        net(x)
+    with torch.no_grad():
+        net(x)
+    net(x)
+    assert _paths(t0) == (3, 1)
+
+
+@pytest.mark.cuda
+def test_call_block_is_the_same_with_graph_and_eager_forwards(cuda_device):
+    """A ``ModCaller`` call block in bfloat16 is byte for byte the same
+    whether Inception replays its graph or runs eagerly."""
+    import dataclasses
+    import time
+
+    from deepsignal_tpu_torch.io.feature_codec import parse_feature_lines
+    from deepsignal_tpu_torch.runtime.caller import ModCaller
+    from deepsignal_tpu_torch.train.checkpoints import state_dict_to_variables
+    tt = _tiny()
+    cfg = dataclasses.replace(tt.tiny_cfg(), compute_dtype="bfloat16")
+    with open(tt.FEATURES) as f:
+        fb = parse_feature_lines(f.read().splitlines())
+    caller = ModCaller(cfg, state_dict_to_variables(cfg, tt.tiny_state_dict()),
+                       batch_size=16, device=cuda_device)
+    batches = -(-len(fb) // 16)
+    t0 = time.perf_counter()
+    graph_block = caller.collect_block(caller.dispatch_feature_batch(fb))[0]
+    assert _paths(t0) == (batches, 0)
+    t0 = time.perf_counter()
+    with mock.patch.object(layers, "graph_takes", lambda *a: False):
+        eager_block = caller.collect_block(
+            caller.dispatch_feature_batch(fb))[0]
+    assert _paths(t0) == (0, batches)
+    assert len(graph_block.splitlines()) == len(fb)
+    assert graph_block == eager_block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+def test_batch_norm_on_the_card_bits_equal_the_new_tensor_formula(
+        cuda_device, dtype, train):
+    """Batch norm's epsilon, filled on the card, gives the bits of
+    ``var.new_tensor(eps)``, output and gradients (the CPU test's case on
+    the card, where a Python-scalar epsilon would add in float32)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_inception_graph as on_cpu
+    bn, gen = on_cpu._bn(3)
+    bn = bn.to(cuda_device)
+    x = (torch.randn(16, 512, 9, generator=gen) * 0.01).to(cuda_device, dtype)
+    outs, grads = [], []
+    for fn in (lambda x: bn(x, train),
+               lambda x: on_cpu._bn_before(bn, x, train)):
+        xi = x.clone().requires_grad_(train)
+        outs.append(fn(xi))
+        if train:
+            bn.zero_grad()
+            outs[-1].float().square().sum().backward()
+            grads.append([xi.grad, bn.scale.grad, bn.bias.grad])
+    assert _same_bits(*outs)
+    for got, want in zip(*grads):
+        assert _same_bits(got, want)
