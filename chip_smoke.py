@@ -1497,19 +1497,6 @@ def check_featurize(reads: list) -> tuple:
             check(getattr(f, name).tobytes() == getattr(g, name).tobytes(),
                   f"featurize: native segment {name} differ from numpy's")
 
-    # the native MAD normalization (off the path) against the one the path
-    # runs, on the same reads
-    scaled = [signal.rescale_signals(r.raw_signal, r.scaling, r.offset)
-              for r in some]
-    t0 = time.perf_counter()
-    mad_native = [native.normalize_mad(x) for x in scaled]
-    mad_native_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mad_path = [signal.normalize_signals(x, "mad") for x in scaled]
-    mad_path_s = time.perf_counter() - t0
-    check(all(a.tobytes() == b.tobytes() for a, b in zip(mad_native, mad_path)),
-          "featurize: the native MAD normalization differs from numpy's")
-
     golden = [row for f in extractor.extract_fast5_batch(
         golden_reads(), motifs, FeatureConfig(central_sample_seed=99),
         chrom2len={"chrG": 3000})[0] for row in f.to_tsv_rows()]
@@ -1522,8 +1509,6 @@ def check_featurize(reads: list) -> tuple:
     res = {"reads": len(some), "sites": len(rows),
            "native_us_per_site": native_s / len(rows) * 1e6,
            "plain_us_per_site": plain_s / len(rows) * 1e6,
-           "mad_native_us_per_read": mad_native_s / len(some) * 1e6,
-           "mad_path_us_per_read": mad_path_s / len(some) * 1e6,
            "golden_rows": len(golden), "host_cpus": os.cpu_count(),
            "numpy": np.__version__}
     print(f"featurize host: {json.dumps(res)}", flush=True)

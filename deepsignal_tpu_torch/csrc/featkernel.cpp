@@ -1,19 +1,18 @@
 // Featurizer kernels for the host, with a plain C interface.
 //
 // A copy of the extract half of the reference package's native featurize
-// module (deepsignal_tpu/native/featkernel.cpp: pairwise_sum, median_inplace,
-// normalize_mad, segment_stats, append_repr6, format_rows6) for the PyTorch
-// port, bound with ctypes instead of the CPython C API.  The caller
-// allocates every output; a function that would write past an output's
-// capacity, or read past its input, returns an error code instead.
+// module (deepsignal_tpu/native/featkernel.cpp: pairwise_sum, segment_stats,
+// append_repr6, format_rows6) for the PyTorch port, bound with ctypes
+// instead of the CPython C API.  The read's MAD normalization stays in
+// numpy (featurize/signal.py::normalize_signals).  The caller allocates
+// every output; a function that would write past an output's capacity, or
+// read past its input, returns an error code instead.
 //
-// Every function reproduces numpy's bits (the extract_features.py hot loops
-// at :143-151 and :269-276, and the feature-TSV cell format of :289-303):
+// Every function reproduces numpy's bits (the extract_features.py hot loop
+// at :269-276, and the feature-TSV cell format of :289-303):
 // - mean/std: numpy reduces a contiguous float64 row with pairwise
 //   summation (8 partial sums per block of at most 128, recursive halving
 //   above), copied here step for step;
-// - median: the element(s) numpy's partition selects; an even length takes
-//   (lo + hi) / 2 in double, as np.median does;
 // - np.around(x, 6) == rint(x * 1e6) / 1e6;
 // - text: numpy's str() of a float64, shortest round-trip digits
 //   (std::to_chars and numpy's dragon4 in its unique mode both give the
@@ -25,7 +24,6 @@
 // Build without -ffast-math, -march=native or FMA contraction: the sums
 // must round as numpy's do.
 
-#include <algorithm>
 #include <charconv>
 #include <cmath>
 #include <cstdint>
@@ -57,17 +55,6 @@ double pairwise_sum(const double* a, int64_t n) {
   int64_t n2 = n / 2;
   n2 -= n2 % 8;
   return pairwise_sum(a, n2) + pairwise_sum(a + n2, n - n2);
-}
-
-// np.median: partition-select; an even length -> mean of the two middles.
-double median_inplace(std::vector<double>& v) {
-  const size_t n = v.size();
-  const size_t k = (n - 1) / 2;
-  std::nth_element(v.begin(), v.begin() + k, v.end());
-  const double lo = v[k];
-  if (n % 2) return lo;
-  const double hi = *std::min_element(v.begin() + k + 1, v.end());
-  return (lo + hi) / 2.0;
 }
 
 // the longest text append_repr6 writes: "-1.2345678901234567e-308" is 24
@@ -198,21 +185,6 @@ int64_t ds_segment_stats(const double* x, int64_t n, const int64_t* starts,
                         static_cast<double>(len));
   }
   return 0;
-}
-
-// MAD normalization of a rescaled signal x[0 .. n) into out, rounded to 6
-// decimals: (x - median(x)) / median(|x - median(x)| / 0.6744897501960817),
-// the statsmodels robust.mad op order (extract_features.py:143-151).
-void ds_normalize_mad(const double* x, int64_t n, double* out) {
-  if (n <= 0) return;
-  constexpr double kMadScale = 0.6744897501960817;  // norm.ppf(0.75)
-  std::vector<double> scratch(x, x + n);
-  const double med = median_inplace(scratch);
-  for (int64_t i = 0; i < n; i++)
-    scratch[i] = std::fabs(x[i] - med) / kMadScale;
-  const double sscale = median_inplace(scratch);
-  for (int64_t i = 0; i < n; i++)
-    out[i] = std::rint((x[i] - med) / sscale * 1e6) / 1e6;
 }
 
 // Each row of the [s, k] matrix x (6-decimal values) as the comma-joined

@@ -6,7 +6,7 @@
 - ``format_call_block``, ``count_read_runs``, ``repr_f32``: the call-row
   formatter (``csrc/callfmt.cpp``), a copy of the call-row half of its
   ``native/featkernel.cpp``;
-- ``segment_stats``, ``normalize_mad``, ``format_rows6``: the featurizer
+- ``segment_stats``, ``format_rows6``: the featurizer
   kernels (``csrc/featkernel.cpp``), a copy of the extract half of that
   file.
 
@@ -78,8 +78,6 @@ def _featkernel() -> ctypes.CDLL:
     lib.ds_segment_stats.argtypes = [_PTR, _I64, _PTR, _PTR, _I64, _PTR,
                                      _PTR]
     lib.ds_segment_stats.restype = _I64
-    lib.ds_normalize_mad.argtypes = [_PTR, _I64, _PTR]
-    lib.ds_normalize_mad.restype = None
     lib.ds_format_rows6.argtypes = [_PTR, _I64, _I64, _PTR, _I64, _PTR, _F64,
                                     _F64]
     lib.ds_format_rows6.restype = _I64
@@ -133,15 +131,6 @@ def segment_stats(norm: np.ndarray, starts: np.ndarray, lengths: np.ndarray):
                          f"len={ln[i]} n={x.size})")
     segment_stats.calls += 1
     return means, stds
-
-
-def normalize_mad(signals: np.ndarray) -> np.ndarray:
-    """MAD normalization of a rescaled float64 signal, rounded to 6
-    decimals, as numpy's median computes it."""
-    x = np.ascontiguousarray(signals, dtype=np.float64).ravel()
-    out = np.empty_like(x)
-    _featkernel().ds_normalize_mad(_ptr(x), x.size, _ptr(out))
-    return out
 
 
 def format_rows6(x) -> list:

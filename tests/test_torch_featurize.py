@@ -133,14 +133,6 @@ def test_normalize_signals_match_jax(method, n):
     assert _bits_equal(got, want)
 
 
-@pytest.mark.parametrize("n", [11, 100, 1000, 1001])
-def test_native_normalize_mad_matches_jax_and_numpy(n):
-    x = np.random.default_rng(n).standard_normal(n) * 40 + 420
-    got = native.normalize_mad(x)
-    assert _bits_equal(got, jax_featkernel.normalize_mad(x))
-    assert _bits_equal(got, signal.normalize_signals(x, "mad"))
-
-
 def test_segment_stats_native_plain_and_jax_agree():
     rng = np.random.default_rng(5)
     lengths = np.concatenate([np.array(signal.PROBE_LENGTHS),
