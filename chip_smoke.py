@@ -54,7 +54,8 @@ per-layer kernel.  Then it drives the main paths at full width:
   ``stream_fast5_feature_batches`` calls every site in bfloat16 and in
   float32, K1 launched once per device batch, the first batch held against
   the plain encoder, each run once more under ``torch.profiler`` for the
-  device's idle share.  Then the same 120 reads as fast5 files, written
+  device's idle share and the batch-norm kernel's launches (113 a
+  forward, replays and captures' warm-ups).  Then the same 120 reads as fast5 files, written
   and read by the port's own HDF5 code (``io/hdf5.py``, no h5py): ``extract
   -i <dir>`` through the CLI writes the in-memory reads' feature TSV, and
   ``call_mods -i <dir>`` through the CLI gives the in-memory reads' calls
@@ -225,6 +226,7 @@ LOSS_RTOL = 1e-6
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s of float32 FMA outside the tensor cores and of bfloat16 tensor cores
 HBM_BYTES_S = 3.35e12
+L2_BYTES = 50 * 2**20
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
@@ -262,6 +264,27 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def graph_ms(fn, inputs: list) -> float:
+    """Device ms of one call of ``fn`` alone, from device memory: one call
+    on each of ``inputs`` (more than twice the L2 together, so that no call
+    finds its input or its output there) captured in a CUDA graph, so that
+    no host time lies between them, every output held to the graph's end,
+    so that each lands in memory of its own; the replay timed by
+    ``cuda_ms``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(inputs[0])   # lazy set-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(x) for x in inputs]
+    ms = cuda_ms(graph.replay) / len(inputs)
+    del outs, graph
+    return ms
 
 
 # --------------------------------------------------------------------------
@@ -821,6 +844,83 @@ def check_scan(dtype_name: str, device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the batch-norm-and-relu kernel: every batch norm of Inception at inference
+
+
+def inception_norms(signal_len: int = 360, times: int = 16,
+                    blocks: tuple = (3, 5, 3)) -> dict:
+    """{(C, L, relu): count} of the batch norms of one InceptionNet forward:
+    the stem's three convs, then per block 2t channels three times, 3t six
+    (two without relu: branch 5's stem and its last conv) and 4t once."""
+    length = -(-signal_len // 2)
+    norms = {(64, length, True): 1}
+    length = -(-length // 2)
+    norms[128, length, True] = norms[256, length, True] = 1
+    t = times
+    for stage, n_blocks in enumerate(blocks):
+        if stage > 0:
+            length = -(-length // 2)
+        for key, k in (((2 * t, length, True), 3), ((3 * t, length, True), 4),
+                       ((3 * t, length, False), 2), ((4 * t, length, True), 1)):
+            norms[key] = norms.get(key, 0) + k * n_blocks
+    return norms
+
+
+def check_bn_relu(dtype_name: str, device) -> dict:
+    """The batch-norm-and-relu kernel at every (C, L) of the published
+    InceptionNet at B=4096: its output equal to the plain version's (the
+    torch formula) bit for bit, then timed alone from device memory
+    (``graph_ms`` over copies of the input that fill twice the L2) beside
+    the plain version and PyTorch's batch norm with relu (``F.batch_norm``
+    + ``torch.relu``, another rounding) and its bound (each element read
+    and written once at HBM_BYTES_S); the per-forward sums weight each
+    shape by its count."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepsignal_tpu_torch.ops.cuda import bn_relu
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(2207)
+    eps = torch.full((), 1e-3, dtype=dtype, device=device)
+    shapes, total = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                         "bound_ms": 0.0}
+    for (c, n, relu), count in inception_norms().items():
+        mean, bias = (torch.randn(c, generator=gen, device=device) * 0.5
+                      for _ in range(2))
+        var, scale = (torch.rand(c, generator=gen, device=device) + 0.5
+                      for _ in range(2))
+        x = torch.randn(B, c, n, generator=gen, device=device).to(dtype)
+        rest = (mean, var, scale, bias, eps, relu)
+        nbytes = x.numel() * x.element_size()
+        inputs = [x] + [x.clone() for _ in range(
+            max(2, -(-2 * L2_BYTES // nbytes)) - 1)]
+        with torch.inference_mode():
+            check(torch.equal(bn_relu.batch_norm_relu(x, *rest).view(
+                -1).view(torch.uint8), bn_relu.batch_norm_relu_plain(
+                    x, *rest).view(-1).view(torch.uint8)),
+                f"bn_relu {dtype_name} C={c} L={n}: bits differ from plain")
+            calls = {"ms": lambda t: bn_relu.batch_norm_relu(t, *rest),
+                     "plain_ms": lambda t: bn_relu.batch_norm_relu_plain(
+                         t, *rest),
+                     "library_ms": lambda t: torch.relu(F.batch_norm(
+                         t, mean, var, scale, bias, False, 0.0, 1e-3))}
+            got = {k: graph_ms(fn, inputs) for k, fn in calls.items()}
+        del inputs
+        got["bound_ms"] = 2 * nbytes / HBM_BYTES_S * 1e3
+        got["count"] = count
+        shapes[f"C{c}_L{n}_{'relu' if relu else 'norm'}"] = got
+        for k in total:
+            total[k] += count * got[k]
+    row = {"name": f"bn_relu_{'f32' if dtype_name == 'float32' else 'bf16'}",
+           "dtype": dtype_name, "batch": B, "per_forward": total,
+           "bound_by": "bytes", "shapes": shapes}
+    print(f"bn_relu {dtype_name}: per forward of {B} rows "
+          f"{json.dumps(total)}", flush=True)
+    return row
+
+
+# --------------------------------------------------------------------------
 # gradients and the per-layer path on the card
 
 
@@ -1010,7 +1110,9 @@ def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
     """``run_call_mods`` on the TSV: K1 launched once per device batch, the
     native parser once per read batch (in the reader process), the native
     formatter and read counter once per device-sized block; the calls in
-    input order, finite, summing to 1, with mixed labels."""
+    input order, finite, summing to 1, with mixed labels; the program's
+    record counting every batch norm of every forward as the kernel's."""
+    from deepsignal_tpu_torch.core.logging import RECORD
     from deepsignal_tpu_torch.io import native
     from deepsignal_tpu_torch.ops.cuda.lstm import bilstm_encoder_fused
     from deepsignal_tpu_torch.runtime.caller import run_call_mods
@@ -1020,10 +1122,13 @@ def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
     native.count_read_runs.calls = 0
     printed = io.StringIO()
     t0 = time.time()
+    p0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         n = run_call_mods(tsv, ckpt, out_path, batch_size=B,
                           compute_dtype=dtype_name)
     seconds = time.time() - t0
+    norms = {path: sum(RECORD.counted(f"bn.{path}", p0, time.perf_counter()))
+             for path in ("kernel", "plain")}
     print(printed.getvalue(), end="", flush=True)
     # the meter's line: its clock starts after the checkpoint is loaded
     meter = re.search(r"\[call_mods\] \d+ sites, .* in ([\d.]+)s \| (\d+) "
@@ -1039,6 +1144,9 @@ def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
     check(launches == device_batches,
           f"{dtype_name}: K1 launched {launches} times for {device_batches} "
           f"device batches")
+    check(norms == {"kernel": 113 * device_batches, "plain": 0},
+          f"{dtype_name}: batch norms counted by path {norms} for "
+          f"{device_batches} device batches of 113")
     check(host_calls == {"parse": read_batches, "format": device_batches,
                          "count_read_runs": device_batches},
           f"{dtype_name}: native calls {host_calls}, want {read_batches} "
@@ -1063,6 +1171,7 @@ def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
     res = {"dtype": dtype_name, "rows": n, "reads": reads,
            "seconds": seconds, "sites_per_s": n / seconds,
            "reads_per_s": reads / seconds, "launches": launches,
+           "bn_counted": norms,
            "meter_seconds": float(meter.group(1)),
            "meter_sites_per_s": int(meter.group(2)),
            "native_calls": host_calls, "label_1_share": float(labels.mean())}
@@ -1561,7 +1670,8 @@ def run_e2e_reads(dtype_name: str, reads: list, ckpt: str, work: str,
     the first device batch equal to it through the plain encoder.  Also the
     seconds the caller waited on the workers for batches (the first one
     included).  With ``profiled``, the device's busy time over the run from
-    ``torch.profiler``."""
+    ``torch.profiler``, and the batch-norm kernel's launches it saw: 113 a
+    forward, the replays' and each capture's eager warm-up."""
     import dataclasses
 
     import torch
@@ -1651,8 +1761,16 @@ def run_e2e_reads(dtype_name: str, reads: list, ckpt: str, work: str,
                         if e.device_type == torch.autograd.DeviceType.CUDA
                         and not e.is_user_annotation) / 1e3
         check(device_ms > 0, f"{tag}: the profiler saw no device time")
+        bn_launches = sum(e.count for e in prof.key_averages()
+                          if "bn_relu_kernel" in e.key)
+        forwards = device_batches + len(caller.model.signal_model._graphs)
+        check(bn_launches == 113 * forwards, f"{tag}: the profiler saw "
+              f"{bn_launches} batch-norm kernels for {forwards} forwards "
+              f"of 113 ({device_batches} replays and the captures' "
+              f"warm-ups)")
         res.update(device_ms=device_ms,
-                   device_idle_share=1 - device_ms / (seconds * 1e3))
+                   device_idle_share=1 - device_ms / (seconds * 1e3),
+                   bn_launches=bn_launches)
     else:
         res["first_batch"] = check_batch_against_plain(
             dtype_name, "e2e reads", fb[:B], ckpt, p[:B], labels[:B])
@@ -3253,7 +3371,7 @@ def main() -> None:
     from deepsignal_tpu_torch.core.device import resolve_device
     from deepsignal_tpu_torch.io import native
     from deepsignal_tpu_torch.io.feature_codec import convert_txt_to_binary
-    from deepsignal_tpu_torch.ops.cuda import build, lstm, lstm_scan
+    from deepsignal_tpu_torch.ops.cuda import build, bn_relu, lstm, lstm_scan
     from deepsignal_tpu_torch.train.checkpoints import (
         ckpt_name, save_checkpoint, state_dict_to_variables)
 
@@ -3269,7 +3387,7 @@ def main() -> None:
     print(f"host compiler: {cxx}", flush=True)
     t0 = time.time()
     reports = build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY,
-                                     native.PARSER_LIBRARY,
+                                     bn_relu.LIBRARY, native.PARSER_LIBRARY,
                                      native.FORMATTER_LIBRARY,
                                      native.FEATURIZER_LIBRARY])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
@@ -3293,11 +3411,13 @@ def main() -> None:
     for d, key in (("bfloat16", "bf16"), ("float32", "f32")):
         k2_rows[d]["ptxas"] = {k: v for k, v in k2_ptxas.items()
                                if k.startswith(key)}
+    bn_rows = {d: check_bn_relu(d, device) for d in dtypes}
     grads = {d: check_gradients(d, device) for d in dtypes}
     for d in dtypes:
         check_small_batch(d, device)
     launches = {("K1", d): {} for d in dtypes}
     launches.update({("K2", d): {} for d in dtypes})
+    launches.update({("bn_relu", d): {} for d in dtypes})
 
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -3340,6 +3460,8 @@ def main() -> None:
         launches["K1", dtype_name]["call_mods_reads"] = res["launches"]
         res["profile"] = run_e2e_reads(dtype_name, reads, ckpt, work,
                                        profiled=True)
+        launches["bn_relu", dtype_name]["call_mods_reads_profiled"] = \
+            res["profile"]["bn_launches"]
         e2e_reads.append(res)
     fast5 = run_fast5_phase(ckpt, work, e2e_reads)
     for dtype_name in dtypes:
@@ -3405,7 +3527,8 @@ def main() -> None:
     print(f"parallel: {parallel['seconds']:.1f} s | {card}", flush=True)
 
     rows = []
-    for kernel, by_dtype in (("K1", k1_rows), ("K2", k2_rows)):
+    for kernel, by_dtype in (("K1", k1_rows), ("K2", k2_rows),
+                             ("bn_relu", bn_rows)):
         for d in dtypes:
             row = by_dtype[d]
             row["launches_by_path"] = launches[kernel, d]
@@ -3445,14 +3568,14 @@ def cards_main(cards: int) -> None:
     from deepsignal_tpu_torch.core.config import ModelConfig
     from deepsignal_tpu_torch.io import native
     from deepsignal_tpu_torch.io.feature_codec import convert_txt_to_binary
-    from deepsignal_tpu_torch.ops.cuda import build, lstm, lstm_scan
+    from deepsignal_tpu_torch.ops.cuda import build, bn_relu, lstm, lstm_scan
     from deepsignal_tpu_torch.train.checkpoints import (
         ckpt_name, save_checkpoint, state_dict_to_variables)
 
     start = time.time()
     card = card_line()
     print(card, flush=True)
-    build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY,
+    build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY, bn_relu.LIBRARY,
                            native.PARSER_LIBRARY, native.FORMATTER_LIBRARY,
                            native.FEATURIZER_LIBRARY])
     work = os.path.join(REPO, "build", "chip_smoke")

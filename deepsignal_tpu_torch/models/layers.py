@@ -24,6 +24,12 @@ once per input shape, dtype, device and parameter storage: one launch in
 place of ~1,700, the same kernels and the same bits.  Training, autograd
 and the CPU run eagerly.  The process's record counts each inference
 forward on the card as ``inception.graph_replay`` or ``inception.eager``.
+Inside it, batch norm with autograd off (``bn_kernel_takes``) is one
+hand-written kernel with the relu after it (``ops/cuda/bn_relu.py``), one
+pass over the activation with torch's bits; the record counts each
+inference forward's batch norms on the card as ``bn.kernel`` or
+``bn.plain``, by that rule at the forward's input (a replay runs its
+capture's path: the key holds the dtype, and autograd is off at both).
 
 Modules take ``train`` (and ``keep_prob``, ``generator``) as arguments, as
 the flax modules do, and ignore ``nn.Module.training``.  Parameters are
@@ -50,6 +56,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.logging import count
+from ..ops.cuda.bn_relu import (batch_norm_relu, batch_norm_relu_plain,
+                                bn_kernel_takes)
 from ..ops.cuda.lstm import bilstm_encoder_fused, kernel_takes
 from ..ops.cuda.lstm_scan import lstm_layer_scan
 from ..parallel.mesh import local_block, model_parallel_linear, sum_over_data
@@ -154,7 +162,8 @@ class TFBatchNorm(nn.Module):
     ``stat = m * stat + (1 - m) * batch_stat`` with m and 1 - m the float32
     values the JAX package uses.  On a mesh with more than one data rank
     the batch statistics are the global batch's, the same on every rank,
-    and so are the running ones."""
+    and so are the running ones.  At inference on the card with autograd
+    off (``bn_kernel_takes``) it is one kernel, ``relu`` included."""
 
     def __init__(self, features: int, epsilon: float = 1e-3,
                  momentum: float = 0.9):
@@ -190,8 +199,10 @@ class TFBatchNorm(nn.Module):
                                                  dtype=torch.float32)
         return mean, (sum_over_data(sq, self.mesh) / n).to(x.dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        dt = x.dtype
+    def forward(self, x: torch.Tensor, train: bool = False,
+                relu: bool = False) -> torch.Tensor:
+        """The normalized ``x``, and with ``relu`` the relu of it."""
+        eps = self._epsilon(x.dtype, x.device)
         if train:
             if self.mesh is None or self.mesh.data == 1:
                 mean = x.mean(dim=(0, 2))
@@ -202,13 +213,12 @@ class TFBatchNorm(nn.Module):
                 self.mean.copy_(self._keep * self.mean
                                 + self._take * mean.float())
                 self.var.copy_(self._keep * self.var + self._take * var.float())
-            mean, var = mean[:, None], var[:, None]
-        else:
-            mean = self.mean.to(dt)[:, None]
-            var = self.var.to(dt)[:, None]
-        inv = torch.rsqrt(var + self._epsilon(dt, x.device))
-        return (x - mean) * (inv * self.scale.to(dt)[:, None]) \
-            + self.bias.to(dt)[:, None]
+            return batch_norm_relu_plain(x, mean, var, self.scale, self.bias,
+                                         eps, relu)
+        takes = bn_kernel_takes(x.device.type, train, torch.is_grad_enabled(),
+                                x.dtype, x.is_contiguous())
+        norm = batch_norm_relu if takes else batch_norm_relu_plain
+        return norm(x, self.mean, self.var, self.scale, self.bias, eps, relu)
 
 
 class ConvBNRelu(nn.Module):
@@ -227,8 +237,7 @@ class ConvBNRelu(nn.Module):
         if any(pads):
             x = F.pad(x, pads)
         x = F.conv1d(x, self.weight.to(x.dtype), stride=self.stride)
-        x = self.bn(x, train)
-        return F.relu(x) if self.use_relu else x
+        return self.bn(x, train, self.use_relu)
 
 
 def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
@@ -313,14 +322,25 @@ class InceptionNet(nn.Module):
                        for table in (m._parameters, m._buffers)
                        for name in table]
         self._graphs = OrderedDict()
+        self._norms = [m for m in self.modules()
+                       if isinstance(m, TFBatchNorm)]
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if graph_takes(x.device.type, train, torch.is_grad_enabled()):
+        grad = torch.is_grad_enabled()
+        if graph_takes(x.device.type, train, grad):
             count("inception.graph_replay", 1)
-            return self._replay(x)
-        if x.is_cuda and not train:
+            out = self._replay(x)
+        elif x.is_cuda and not train:
             count("inception.eager", 1)
-        return self._eager(x, train)
+            out = self._eager(x, train)
+        else:
+            return self._eager(x, train)
+        # every batch norm's input is a convolution's output: contiguous
+        if bn_kernel_takes(x.device.type, train, grad, x.dtype, True):
+            count("bn.kernel", len(self._norms))
+        else:
+            count("bn.plain", len(self._norms))
+        return out
 
     def _eager(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x = self.conv_layer1(x, train)
