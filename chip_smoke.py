@@ -921,6 +921,92 @@ def check_bn_relu(dtype_name: str, device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the max-pool kernel: every max-pool of Inception at inference
+
+
+def inception_pools(signal_len: int = 360, blocks: tuple = (3, 5, 3)) -> dict:
+    """{(C, L, stride): count} of the max-pools of one InceptionNet forward
+    (x16: blocks of 240 channels): the stem's after its first conv, each
+    later stage's head, and the head of every block's branch 1."""
+    length = -(-signal_len // 2)
+    pools = {(64, length, 2): 1}
+    length = -(-length // 2)
+    ch = 256
+    for stage, n_blocks in enumerate(blocks):
+        if stage > 0:
+            pools[ch, length, 2] = pools.get((ch, length, 2), 0) + 1
+            length = -(-length // 2)
+        pools[ch, length, 1] = pools.get((ch, length, 1), 0) + 1
+        ch = 240
+        pools[ch, length, 1] = pools.get((ch, length, 1), 0) + n_blocks - 1
+    return pools
+
+
+def same_pool_bits(got, want) -> bool:
+    """Equal NaN positions, every other value bit for bit."""
+    import torch
+    nan = torch.isnan(got)
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    return (got.shape == want.shape and torch.equal(nan, torch.isnan(want))
+            and torch.equal(got.masked_fill(nan, 0).view(bits),
+                            want.masked_fill(nan, 0).view(bits)))
+
+
+def check_max_pool(dtype_name: str, device) -> dict:
+    """The max-pool kernel at every (C, L, stride) of the published
+    InceptionNet at B=4096: its output equal to ``max_pool_plain``'s (-inf
+    pad, then ``F.max_pool1d``) bit for bit, NaN and +-inf planted, then
+    timed alone from device memory (``graph_ms`` over copies of the input
+    that fill twice the L2) beside the plain version, torch's own pool
+    with its implicit pad (``F.max_pool1d(padding=1)``, another alignment
+    at stride 2 on even L) and its bound (each input read and each output
+    written once at HBM_BYTES_S); the per-forward sums weight each shape
+    by its count."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepsignal_tpu_torch.ops.cuda import max_pool
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(2307)
+    shapes, total = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                         "bound_ms": 0.0}
+    for (c, n, stride), count in inception_pools().items():
+        x = torch.randn(B, c, n, generator=gen, device=device).to(dtype)
+        rows = x.view(-1, n)   # specials at rows' first, last, middle
+        for i, v in enumerate((float("nan"), float("inf"), -float("inf"),
+                               -0.0, 0.0) * 4):
+            rows[i * 7919 % len(rows), (0, n - 1, n // 2)[i % 3]] = v
+        nbytes = x.numel() * x.element_size()
+        out_bytes = nbytes // n * -(-n // stride)
+        inputs = [x] + [x.clone() for _ in range(
+            max(2, -(-2 * L2_BYTES // nbytes)) - 1)]
+        with torch.inference_mode():
+            check(same_pool_bits(max_pool.max_pool(x, 3, stride),
+                                 max_pool.max_pool_plain(x, 3, stride)),
+                  f"max_pool {dtype_name} C={c} L={n} stride {stride}: bits "
+                  f"differ from plain")
+            calls = {"ms": lambda t: max_pool.max_pool(t, 3, stride),
+                     "plain_ms": lambda t: max_pool.max_pool_plain(
+                         t, 3, stride),
+                     "library_ms": lambda t: F.max_pool1d(t, 3, stride,
+                                                          padding=1)}
+            got = {k: graph_ms(fn, inputs) for k, fn in calls.items()}
+        del inputs
+        got["bound_ms"] = (nbytes + out_bytes) / HBM_BYTES_S * 1e3
+        got["count"] = count
+        shapes[f"C{c}_L{n}_s{stride}"] = got
+        for k in total:
+            total[k] += count * got[k]
+    row = {"name": f"max_pool_{'f32' if dtype_name == 'float32' else 'bf16'}",
+           "dtype": dtype_name, "batch": B, "per_forward": total,
+           "bound_by": "bytes", "shapes": shapes}
+    print(f"max_pool {dtype_name}: per forward of {B} rows "
+          f"{json.dumps(total)}", flush=True)
+    return row
+
+
+# --------------------------------------------------------------------------
 # gradients and the per-layer path on the card
 
 
@@ -1670,8 +1756,9 @@ def run_e2e_reads(dtype_name: str, reads: list, ckpt: str, work: str,
     the first device batch equal to it through the plain encoder.  Also the
     seconds the caller waited on the workers for batches (the first one
     included).  With ``profiled``, the device's busy time over the run from
-    ``torch.profiler``, and the batch-norm kernel's launches it saw: 113 a
-    forward, the replays' and each capture's eager warm-up."""
+    ``torch.profiler``, and the batch-norm and max-pool kernels' launches
+    it saw: 113 and 14 a forward, the replays' and each capture's eager
+    warm-up, and no ATen pool."""
     import dataclasses
 
     import torch
@@ -1768,9 +1855,18 @@ def run_e2e_reads(dtype_name: str, reads: list, ckpt: str, work: str,
               f"{bn_launches} batch-norm kernels for {forwards} forwards "
               f"of 113 ({device_batches} replays and the captures' "
               f"warm-ups)")
+        pool_launches = sum(e.count for e in prof.key_averages()
+                            if "max_pool3_" in e.key)
+        check(pool_launches == 14 * forwards, f"{tag}: the profiler saw "
+              f"{pool_launches} max-pool kernels for {forwards} forwards "
+              f"of 14")
+        aten_pools = sum(e.count for e in prof.key_averages()
+                         if "max_pool_forward_nchw" in e.key)
+        check(aten_pools == 0, f"{tag}: the profiler saw {aten_pools} of "
+              f"ATen's max-pool kernels")
         res.update(device_ms=device_ms,
                    device_idle_share=1 - device_ms / (seconds * 1e3),
-                   bn_launches=bn_launches)
+                   bn_launches=bn_launches, pool_launches=pool_launches)
     else:
         res["first_batch"] = check_batch_against_plain(
             dtype_name, "e2e reads", fb[:B], ckpt, p[:B], labels[:B])
@@ -3371,7 +3467,8 @@ def main() -> None:
     from deepsignal_tpu_torch.core.device import resolve_device
     from deepsignal_tpu_torch.io import native
     from deepsignal_tpu_torch.io.feature_codec import convert_txt_to_binary
-    from deepsignal_tpu_torch.ops.cuda import build, bn_relu, lstm, lstm_scan
+    from deepsignal_tpu_torch.ops.cuda import (build, bn_relu, lstm,
+                                               lstm_scan, max_pool)
     from deepsignal_tpu_torch.train.checkpoints import (
         ckpt_name, save_checkpoint, state_dict_to_variables)
 
@@ -3387,7 +3484,8 @@ def main() -> None:
     print(f"host compiler: {cxx}", flush=True)
     t0 = time.time()
     reports = build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY,
-                                     bn_relu.LIBRARY, native.PARSER_LIBRARY,
+                                     bn_relu.LIBRARY, max_pool.LIBRARY,
+                                     native.PARSER_LIBRARY,
                                      native.FORMATTER_LIBRARY,
                                      native.FEATURIZER_LIBRARY])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
@@ -3412,12 +3510,14 @@ def main() -> None:
         k2_rows[d]["ptxas"] = {k: v for k, v in k2_ptxas.items()
                                if k.startswith(key)}
     bn_rows = {d: check_bn_relu(d, device) for d in dtypes}
+    pool_rows = {d: check_max_pool(d, device) for d in dtypes}
     grads = {d: check_gradients(d, device) for d in dtypes}
     for d in dtypes:
         check_small_batch(d, device)
     launches = {("K1", d): {} for d in dtypes}
     launches.update({("K2", d): {} for d in dtypes})
     launches.update({("bn_relu", d): {} for d in dtypes})
+    launches.update({("max_pool", d): {} for d in dtypes})
 
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -3462,6 +3562,8 @@ def main() -> None:
                                        profiled=True)
         launches["bn_relu", dtype_name]["call_mods_reads_profiled"] = \
             res["profile"]["bn_launches"]
+        launches["max_pool", dtype_name]["call_mods_reads_profiled"] = \
+            res["profile"]["pool_launches"]
         e2e_reads.append(res)
     fast5 = run_fast5_phase(ckpt, work, e2e_reads)
     for dtype_name in dtypes:
@@ -3528,7 +3630,7 @@ def main() -> None:
 
     rows = []
     for kernel, by_dtype in (("K1", k1_rows), ("K2", k2_rows),
-                             ("bn_relu", bn_rows)):
+                             ("bn_relu", bn_rows), ("max_pool", pool_rows)):
         for d in dtypes:
             row = by_dtype[d]
             row["launches_by_path"] = launches[kernel, d]
@@ -3568,7 +3670,8 @@ def cards_main(cards: int) -> None:
     from deepsignal_tpu_torch.core.config import ModelConfig
     from deepsignal_tpu_torch.io import native
     from deepsignal_tpu_torch.io.feature_codec import convert_txt_to_binary
-    from deepsignal_tpu_torch.ops.cuda import build, bn_relu, lstm, lstm_scan
+    from deepsignal_tpu_torch.ops.cuda import (build, bn_relu, lstm,
+                                               lstm_scan, max_pool)
     from deepsignal_tpu_torch.train.checkpoints import (
         ckpt_name, save_checkpoint, state_dict_to_variables)
 
@@ -3576,7 +3679,8 @@ def cards_main(cards: int) -> None:
     card = card_line()
     print(card, flush=True)
     build.build_libraries([lstm.LIBRARY, lstm_scan.LIBRARY, bn_relu.LIBRARY,
-                           native.PARSER_LIBRARY, native.FORMATTER_LIBRARY,
+                           max_pool.LIBRARY, native.PARSER_LIBRARY,
+                           native.FORMATTER_LIBRARY,
                            native.FEATURIZER_LIBRARY])
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)

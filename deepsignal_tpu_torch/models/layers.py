@@ -6,8 +6,9 @@ PyTorch's defaults, the TF rule is written out:
 
 - SAME padding is asymmetric, the extra pad on the right (``tf_same_pads``):
   conv k7/s2 on L=360 pads (2, 3), a k3/s2 max-pool on L=180 pads (0, 1).
-  PyTorch's symmetric ``padding=`` is off by one in both, so every conv and
-  max-pool pads explicitly with ``F.pad`` (max-pools with -inf).
+  PyTorch's symmetric ``padding=`` is off by one in both, so every conv
+  pads explicitly with ``F.pad``, and so does every max-pool outside an
+  inference forward on the card (with -inf, ``max_pool_plain``).
 - the 7/s1 average pool excludes padding from the denominator.
 - batch norm computes in the input dtype:
   ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` (layers.py:145-161),
@@ -30,6 +31,10 @@ pass over the activation with torch's bits; the record counts each
 inference forward's batch norms on the card as ``bn.kernel`` or
 ``bn.plain``, by that rule at the forward's input (a replay runs its
 capture's path: the key holds the dtype, and autograd is off at both).
+Its 3-wide max-pools likewise (``pool_kernel_takes``) are one hand-written
+kernel each (``ops/cuda/max_pool.py``) that takes the -inf pad in its index
+arithmetic and writes no indices, with torch's bits; the record counts them
+as ``pool.kernel`` or ``pool.plain`` by the same rule.
 
 Modules take ``train`` (and ``keep_prob``, ``generator``) as arguments, as
 the flax modules do, and ignore ``nn.Module.training``.  Parameters are
@@ -47,7 +52,6 @@ axis fc1's output rows are sharded and its activation all-gathered.
 
 from __future__ import annotations
 
-import math
 from collections import OrderedDict
 
 import numpy as np
@@ -60,14 +64,9 @@ from ..ops.cuda.bn_relu import (batch_norm_relu, batch_norm_relu_plain,
                                 bn_kernel_takes)
 from ..ops.cuda.lstm import bilstm_encoder_fused, kernel_takes
 from ..ops.cuda.lstm_scan import lstm_layer_scan
+from ..ops.cuda.max_pool import (max_pool, max_pool_plain, pool_kernel_takes,
+                                 tf_same_pads)
 from ..parallel.mesh import local_block, model_parallel_linear, sum_over_data
-
-
-def tf_same_pads(length: int, window: int, stride: int):
-    """TF 'SAME' (left, right) padding: extra pad on the right."""
-    out_len = -(-length // stride)
-    pad = max((out_len - 1) * stride + window - length, 0)
-    return pad // 2, pad - pad // 2
 
 
 def _ceil_half(n: int) -> int:
@@ -240,11 +239,14 @@ class ConvBNRelu(nn.Module):
         return self.bn(x, train, self.use_relu)
 
 
-def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
-    pads = tf_same_pads(x.shape[-1], window, stride)
-    if any(pads):
-        x = F.pad(x, pads, value=-math.inf)
-    return F.max_pool1d(x, window, stride)
+def max_pool_same(x: torch.Tensor, window: int, stride: int,
+                  train: bool = False) -> torch.Tensor:
+    """TF's SAME max-pool over the last axis: the kernel where
+    ``pool_kernel_takes`` holds (an inference forward on the card with
+    autograd off), else ``max_pool_plain``."""
+    takes = pool_kernel_takes(x.device.type, train, torch.is_grad_enabled(),
+                              x.dtype, x.is_contiguous())
+    return (max_pool if takes else max_pool_plain)(x, window, stride)
 
 
 class InceptionBlock(nn.Module):
@@ -265,7 +267,7 @@ class InceptionBlock(nn.Module):
         self.branch5_conv2e = ConvBNRelu(4 * t, 3 * t, 1, use_relu=False)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        b1 = self.branch1_conv1a(max_pool_same(x, 3, 1), train)
+        b1 = self.branch1_conv1a(max_pool_same(x, 3, 1, train), train)
         b2 = self.branch2_conv0b(x, train)
         b3 = self.branch3_conv1c(self.branch3_conv0c(x, train), train)
         b4 = self.branch4_conv1d(self.branch4_conv0d(x, train), train)
@@ -324,6 +326,10 @@ class InceptionNet(nn.Module):
         self._graphs = OrderedDict()
         self._norms = [m for m in self.modules()
                        if isinstance(m, TFBatchNorm)]
+        # (window, stride) of a forward's max-pools: one of stride 2 at the
+        # head of each stage (the first after the stem's first conv), one of
+        # stride 1 at the head of every block's branch 1
+        self._pools = [(3, 2)] * len(self.blocks) + [(3, 1)] * sum(self.blocks)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         grad = torch.is_grad_enabled()
@@ -335,21 +341,26 @@ class InceptionNet(nn.Module):
             out = self._eager(x, train)
         else:
             return self._eager(x, train)
-        # every batch norm's input is a convolution's output: contiguous
+        # every batch norm's input is a convolution's output, every
+        # max-pool's a batch norm's or a block's ``cat``: contiguous
         if bn_kernel_takes(x.device.type, train, grad, x.dtype, True):
             count("bn.kernel", len(self._norms))
         else:
             count("bn.plain", len(self._norms))
+        if pool_kernel_takes(x.device.type, train, grad, x.dtype, True):
+            count("pool.kernel", len(self._pools))
+        else:
+            count("pool.plain", len(self._pools))
         return out
 
     def _eager(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x = self.conv_layer1(x, train)
-        x = max_pool_same(x, 3, 2)
+        x = max_pool_same(x, 3, 2, train)
         x = self.conv_layer3(self.conv_layer2(x, train), train)
         idx = 1
         for stage, n_blocks in enumerate(self.blocks):
             if stage > 0:
-                x = max_pool_same(x, 3, 2)
+                x = max_pool_same(x, 3, 2, train)
             for _ in range(n_blocks):
                 x = getattr(self, f"incp_layer{idx}")(x, train)
                 idx += 1
