@@ -20,6 +20,10 @@ RNN-only model), prints each kernel's launch plan, waves and the L2 weight
 bytes it implies, and times the kernel, the plain version and one PyTorch
 library call that computes the same function (the scan also in its parts
 and through its streaming variant, at both train depths).
+It holds each Inception block's five 1x1 convs that read its input,
+merged into one conv and one batch norm, against the five split convs at
+each block input of the published model (bits, or the largest gap) and
+times both (``check_merged_conv``).
 It checks the kernels' gradients against autograd through their plain
 versions, and that a batch the fused encoder does not take runs through the
 per-layer kernel.  Then it drives the main paths at full width:
@@ -54,7 +58,7 @@ per-layer kernel.  Then it drives the main paths at full width:
   ``stream_fast5_feature_batches`` calls every site in bfloat16 and in
   float32, K1 launched once per device batch, the first batch held against
   the plain encoder, each run once more under ``torch.profiler`` for the
-  device's idle share and the batch-norm kernel's launches (113 a
+  device's idle share and the batch-norm kernel's launches (69 a
   forward, replays and captures' warm-ups).  Then the same 120 reads as fast5 files, written
   and read by the port's own HDF5 code (``io/hdf5.py``, no h5py): ``extract
   -i <dir>`` through the CLI writes the in-memory reads' feature TSV, and
@@ -124,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -138,6 +143,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # features, hidden 256
 B, T, D, H = 4096, 17, 131, 256
 N_ROWS = 20000          # synthetic feature rows: 4 full device batches + tail
+# an inference forward of the published InceptionNet on the card: 11 blocks,
+# each with its five 1x1 convs that read the block's input merged into one,
+# so 69 convs and 69 batch norms (113 of each split)
+BLOCKS_A_FORWARD = 11
+NORMS_A_FORWARD = 69
 SITES_PER_READ = 40
 READS_PER_BATCH = 50    # run_call_mods's f5_batch_num: 10 read batches
 # the reads path: 120 in-memory reads of 8,000 bases (about 500 CpG sites
@@ -849,32 +859,59 @@ def check_scan(dtype_name: str, device) -> dict:
 
 def inception_norms(signal_len: int = 360, times: int = 16,
                     blocks: tuple = (3, 5, 3)) -> dict:
-    """{(C, L, relu): count} of the batch norms of one InceptionNet forward:
-    the stem's three convs, then per block 2t channels three times, 3t six
-    (two without relu: branch 5's stem and its last conv) and 4t once."""
+    """{(C, L, relu, groups): count} of the batch norms of one InceptionNet
+    inference forward on the card (``relu`` the number of leading channels
+    the relu applies to, C for all and 0 for none; ``groups`` the channel
+    counts of the outputs the kernel writes as contiguous blocks, None for
+    one output): the stem's three convs, then per block the merged 1x1
+    convs' 12t channels with the relu on the first 9t, in the groups of
+    ``InceptionBlock.MERGED`` (3t, 2t, 2t, 2t, 3t), 3t three times (branch
+    1 and the k3/k5 convs of branches 3 and 4), 4t once and 3t once
+    without relu (branch 5's last conv)."""
     length = -(-signal_len // 2)
-    norms = {(64, length, True): 1}
+    norms = {(64, length, 64, None): 1}
     length = -(-length // 2)
-    norms[128, length, True] = norms[256, length, True] = 1
+    norms[128, length, 128, None] = norms[256, length, 256, None] = 1
     t = times
+    merged = (3 * t, 2 * t, 2 * t, 2 * t, 3 * t)
     for stage, n_blocks in enumerate(blocks):
         if stage > 0:
             length = -(-length // 2)
-        for key, k in (((2 * t, length, True), 3), ((3 * t, length, True), 4),
-                       ((3 * t, length, False), 2), ((4 * t, length, True), 1)):
+        for key, k in (((12 * t, length, 9 * t, merged), 1),
+                       ((3 * t, length, 3 * t, None), 3),
+                       ((3 * t, length, 0, None), 1),
+                       ((4 * t, length, 4 * t, None), 1)):
             norms[key] = norms.get(key, 0) + k * n_blocks
     return norms
 
 
+def relu_tag(relu: int, channels: int) -> str:
+    """A batch norm case's relu in a shape's name."""
+    return "relu" if relu == channels else "norm" if relu == 0 \
+        else f"relu{relu}"
+
+
+def norm_bits(out):
+    """The bytes of a batch norm's output, its groups' in order, each made
+    contiguous: the kernel's groups are blocks of one buffer, the plain
+    version's channel slices of one tensor."""
+    import torch
+    parts = out if isinstance(out, (tuple, list)) else (out,)
+    return torch.cat([t.contiguous().view(-1) for t in parts]).view(
+        torch.uint8)
+
+
 def check_bn_relu(dtype_name: str, device) -> dict:
-    """The batch-norm-and-relu kernel at every (C, L) of the published
-    InceptionNet at B=4096: its output equal to the plain version's (the
-    torch formula) bit for bit, then timed alone from device memory
-    (``graph_ms`` over copies of the input that fill twice the L2) beside
-    the plain version and PyTorch's batch norm with relu (``F.batch_norm``
-    + ``torch.relu``, another rounding) and its bound (each element read
-    and written once at HBM_BYTES_S); the per-forward sums weight each
-    shape by its count."""
+    """The batch-norm-and-relu kernel at every (C, L, relu, groups) of the
+    published InceptionNet's inference forward at B=4096 (the merged 1x1
+    convs' with their relu on the leading 144 channels and their five
+    groups, as the forward launches it): its output equal to the plain
+    version's (the torch formula, its groups made contiguous) bit for bit,
+    then timed alone from device memory (``graph_ms`` over copies of the
+    input that fill twice the L2) beside the plain version and PyTorch's
+    batch norm with relu (``F.batch_norm`` + ``torch.relu``, another
+    rounding) and its bound (each element read and written once at
+    HBM_BYTES_S); the per-forward sums weight each shape by its count."""
     import torch
     import torch.nn.functional as F
 
@@ -885,21 +922,23 @@ def check_bn_relu(dtype_name: str, device) -> dict:
     eps = torch.full((), 1e-3, dtype=dtype, device=device)
     shapes, total = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                          "bound_ms": 0.0}
-    for (c, n, relu), count in inception_norms().items():
+    for (c, n, relu, groups), count in inception_norms().items():
         mean, bias = (torch.randn(c, generator=gen, device=device) * 0.5
                       for _ in range(2))
         var, scale = (torch.rand(c, generator=gen, device=device) + 0.5
                       for _ in range(2))
         x = torch.randn(B, c, n, generator=gen, device=device).to(dtype)
-        rest = (mean, var, scale, bias, eps, relu)
+        rest = (mean, var, scale, bias, eps, relu, groups)
         nbytes = x.numel() * x.element_size()
         inputs = [x] + [x.clone() for _ in range(
             max(2, -(-2 * L2_BYTES // nbytes)) - 1)]
+        name = f"C{c}_L{n}_{relu_tag(relu, c)}" + (
+            f"_groups{len(groups)}" if groups else "")
         with torch.inference_mode():
-            check(torch.equal(bn_relu.batch_norm_relu(x, *rest).view(
-                -1).view(torch.uint8), bn_relu.batch_norm_relu_plain(
-                    x, *rest).view(-1).view(torch.uint8)),
-                f"bn_relu {dtype_name} C={c} L={n}: bits differ from plain")
+            check(torch.equal(norm_bits(bn_relu.batch_norm_relu(x, *rest)),
+                              norm_bits(bn_relu.batch_norm_relu_plain(
+                                  x, *rest))),
+                  f"bn_relu {dtype_name} {name}: bits differ from plain")
             calls = {"ms": lambda t: bn_relu.batch_norm_relu(t, *rest),
                      "plain_ms": lambda t: bn_relu.batch_norm_relu_plain(
                          t, *rest),
@@ -909,7 +948,7 @@ def check_bn_relu(dtype_name: str, device) -> dict:
         del inputs
         got["bound_ms"] = 2 * nbytes / HBM_BYTES_S * 1e3
         got["count"] = count
-        shapes[f"C{c}_L{n}_{'relu' if relu else 'norm'}"] = got
+        shapes[name] = got
         for k in total:
             total[k] += count * got[k]
     row = {"name": f"bn_relu_{'f32' if dtype_name == 'float32' else 'bf16'}",
@@ -1003,6 +1042,106 @@ def check_max_pool(dtype_name: str, device) -> dict:
            "bound_by": "bytes", "shapes": shapes}
     print(f"max_pool {dtype_name}: per forward of {B} rows "
           f"{json.dumps(total)}", flush=True)
+    return row
+
+
+# --------------------------------------------------------------------------
+# the merged 1x1 convs: each Inception block's five that read its input
+
+
+def inception_blocks(signal_len: int = 360,
+                     blocks: tuple = (3, 5, 3)) -> dict:
+    """{(C, L): count} of the block inputs of one InceptionNet forward
+    (x16): 256 channels into the first block, 240 into the others."""
+    length = -(-signal_len // 2)    # the stem's conv of stride 2
+    length = -(-length // 2)        # then its pool of stride 2
+    inputs, ch = {}, 256
+    for stage, n_blocks in enumerate(blocks):
+        if stage > 0:
+            length = -(-length // 2)
+        inputs[ch, length] = inputs.get((ch, length), 0) + 1
+        ch = 240
+        inputs[ch, length] = inputs.get((ch, length), 0) + n_blocks - 1
+    return inputs
+
+
+def scaled_ulps(got, want) -> float:
+    """max |got - want| in steps of the dtype at max |want|."""
+    import torch
+    top = float(want.float().abs().max())
+    if top == 0.0:
+        return 0.0
+    step = 2.0 ** (math.frexp(top)[1] - (8 if want.dtype == torch.bfloat16
+                                         else 24))
+    return float((got.float() - want.float()).abs().max()) / step
+
+
+def check_merged_conv(dtype_name: str, device) -> dict:
+    """Each Inception block's five 1x1 convs that read its input, merged
+    (``InceptionBlock.merged_1x1``: one conv of 192 outputs, one batch
+    norm) against split (the five ``ConvBNRelu`` forwards), casts and batch
+    norms included, at every block input of the published InceptionNet at
+    B=4096: the outputs equal to the split ones bit for bit (each channel
+    is the same float32-accumulated dot product, which cuDNN sums alike at
+    these shapes on an H100; the largest gap in steps of the largest value
+    is reported where they are not), then both timed from device memory
+    (``graph_ms`` over copies of the input that fill twice the L2) beside
+    their bounds (the conv reads the input once and writes its output,
+    batch norm reads and writes it: the split convs read the input five
+    times); the per-forward sums weight each shape by its count."""
+    import torch
+
+    from deepsignal_tpu_torch.models import layers
+
+    dtype = getattr(torch, dtype_name)
+    shapes, total = {}, {"ms": 0.0, "split_ms": 0.0, "bound_ms": 0.0,
+                         "split_bound_ms": 0.0}
+    for (c, n), count in inception_blocks().items():
+        block = layers.InceptionBlock(c, 16)
+        gen = torch.Generator().manual_seed(2407 + c + n)
+        with torch.no_grad():
+            for name, t in block.state_dict(keep_vars=True).items():
+                leaf = name.rsplit(".", 1)[-1]
+                if leaf in ("scale", "var"):
+                    t.uniform_(0.5, 2.0, generator=gen)
+                elif leaf in ("bias", "mean"):
+                    t.normal_(0.0, 0.3, generator=gen)
+                else:
+                    t.normal_(0.0, t[0].numel() ** -0.5, generator=gen)
+        block = block.to(device)
+        convs = block.merged_convs()
+        x = torch.randn(B, c, n, generator=torch.Generator(
+            device=device).manual_seed(n), device=device).to(dtype)
+        nbytes = x.numel() * x.element_size()
+        out_bytes = nbytes // c * sum(m.weight.shape[0] for m in convs)
+        inputs = [x] + [x.clone() for _ in range(
+            max(2, -(-2 * L2_BYTES // nbytes)) - 1)]
+        with torch.inference_mode():
+            merged = block.merged_1x1(x)
+            split = [m(x) for m in convs]
+            equal = all(torch.equal(a, b) for a, b in zip(merged, split))
+            gap = max(scaled_ulps(a, b) for a, b in zip(merged, split))
+            check(equal, f"merged conv {dtype_name} C={c} L={n}: not the "
+                  f"split convs' bits ({gap} steps of the largest value)")
+            got = {"bits_equal": equal, "scaled_ulps": gap,
+                   "ms": graph_ms(lambda t: block.merged_1x1(t), inputs),
+                   "split_ms": graph_ms(lambda t: [m(t) for m in convs],
+                                        inputs)}
+        del inputs
+        got["bound_ms"] = (nbytes + 3 * out_bytes) / HBM_BYTES_S * 1e3
+        got["split_bound_ms"] = (5 * nbytes + 3 * out_bytes) \
+            / HBM_BYTES_S * 1e3
+        got["count"] = count
+        shapes[f"C{c}_L{n}"] = got
+        for k in total:
+            total[k] += count * got[k]
+    row = {"name": f"merged_conv_{'f32' if dtype_name == 'float32' else 'bf16'}",
+           "dtype": dtype_name, "batch": B, "per_forward": total,
+           "bits_equal": all(v["bits_equal"] for v in shapes.values()),
+           "bound_by": "bytes", "shapes": shapes}
+    print(f"merged conv {dtype_name}: per forward of {B} rows "
+          f"{json.dumps(total)}; bits equal {row['bits_equal']}",
+          flush=True)
     return row
 
 
@@ -1215,6 +1354,9 @@ def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
     seconds = time.time() - t0
     norms = {path: sum(RECORD.counted(f"bn.{path}", p0, time.perf_counter()))
              for path in ("kernel", "plain")}
+    convs = {path: sum(RECORD.counted(f"conv.{path}", p0,
+                                      time.perf_counter()))
+             for path in ("merged", "split")}
     print(printed.getvalue(), end="", flush=True)
     # the meter's line: its clock starts after the checkpoint is loaded
     meter = re.search(r"\[call_mods\] \d+ sites, .* in ([\d.]+)s \| (\d+) "
@@ -1230,9 +1372,12 @@ def run_e2e(dtype_name, tsv, ckpt, out_path) -> tuple:
     check(launches == device_batches,
           f"{dtype_name}: K1 launched {launches} times for {device_batches} "
           f"device batches")
-    check(norms == {"kernel": 113 * device_batches, "plain": 0},
+    check(norms == {"kernel": NORMS_A_FORWARD * device_batches, "plain": 0},
           f"{dtype_name}: batch norms counted by path {norms} for "
-          f"{device_batches} device batches of 113")
+          f"{device_batches} device batches of {NORMS_A_FORWARD}")
+    check(convs == {"merged": BLOCKS_A_FORWARD * device_batches, "split": 0},
+          f"{dtype_name}: blocks counted by path {convs} for "
+          f"{device_batches} device batches of {BLOCKS_A_FORWARD}")
     check(host_calls == {"parse": read_batches, "format": device_batches,
                          "count_read_runs": device_batches},
           f"{dtype_name}: native calls {host_calls}, want {read_batches} "
@@ -1757,7 +1902,7 @@ def run_e2e_reads(dtype_name: str, reads: list, ckpt: str, work: str,
     seconds the caller waited on the workers for batches (the first one
     included).  With ``profiled``, the device's busy time over the run from
     ``torch.profiler``, and the batch-norm and max-pool kernels' launches
-    it saw: 113 and 14 a forward, the replays' and each capture's eager
+    it saw: 69 and 14 a forward, the replays' and each capture's eager
     warm-up, and no ATen pool."""
     import dataclasses
 
@@ -1851,10 +1996,10 @@ def run_e2e_reads(dtype_name: str, reads: list, ckpt: str, work: str,
         bn_launches = sum(e.count for e in prof.key_averages()
                           if "bn_relu_kernel" in e.key)
         forwards = device_batches + len(caller.model.signal_model._graphs)
-        check(bn_launches == 113 * forwards, f"{tag}: the profiler saw "
-              f"{bn_launches} batch-norm kernels for {forwards} forwards "
-              f"of 113 ({device_batches} replays and the captures' "
-              f"warm-ups)")
+        check(bn_launches == NORMS_A_FORWARD * forwards, f"{tag}: the "
+              f"profiler saw {bn_launches} batch-norm kernels for "
+              f"{forwards} forwards of {NORMS_A_FORWARD} ({device_batches} "
+              f"replays and the captures' warm-ups)")
         pool_launches = sum(e.count for e in prof.key_averages()
                             if "max_pool3_" in e.key)
         check(pool_launches == 14 * forwards, f"{tag}: the profiler saw "
@@ -3511,6 +3656,7 @@ def main() -> None:
                                if k.startswith(key)}
     bn_rows = {d: check_bn_relu(d, device) for d in dtypes}
     pool_rows = {d: check_max_pool(d, device) for d in dtypes}
+    merged_rows = {d: check_merged_conv(d, device) for d in dtypes}
     grads = {d: check_gradients(d, device) for d in dtypes}
     for d in dtypes:
         check_small_batch(d, device)
@@ -3647,7 +3793,7 @@ def main() -> None:
                                 "extract": extracted, "e2e": e2e_reads,
                                 "fast5": fast5},
                       "tf1": tf1, "tools": tools, "parallel": parallel,
-                      "card": card}), flush=True)
+                      "merged_conv": merged_rows, "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

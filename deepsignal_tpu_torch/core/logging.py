@@ -24,7 +24,8 @@ at most 16 spans per 4,096-row device batch and 16 per train step.  Every
 name starts with its layer (``pipeline.``, ``reader.``, ``caller.``,
 ``model.``, ``trainer.``, ``lstm.`` for the LSTM scan's counts,
 ``inception.`` for the CNN's by path, ``bn.`` for its batch norms'
-by path, ``pool.`` for its max-pools' by path).
+by path, ``pool.`` for its max-pools' by path, ``conv.`` for its blocks'
+1x1 convs by path).
 
 torch is imported inside ``trace`` only; a span looks torch up only when
 the process already holds it, so host processes stay torch-free.

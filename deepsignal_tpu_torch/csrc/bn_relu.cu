@@ -21,10 +21,22 @@
 //     (3 floats a channel), while the block's first loads are in flight;
 //   - no integer division per element or per vector: a vector may straddle
 //     rows (L = 23 and 45 are not multiples of 8), so each thread carries
-//     its position in the row and its channel with adds and compares, and
-//     divides once, at its start.
+//     its position in the row, its channel and its batch with adds and
+//     compares, and divides once, at its start.
 // A tensor whose base is not on a 16-byte boundary takes the same kernel one
 // element at a time.
+//
+// The output may come in groups of channels: the channels [first[g],
+// first[g + 1]) of every row of x go to group g, a contiguous [B, C_g, L]
+// block of the output, the groups one after another (one group, the
+// default, is the [B, C, L] layout of x).  A batch norm over the stacked
+// outputs of sibling convs (InceptionBlock's merged 1x1 convs) thus hands
+// each sibling its own contiguous tensor, which a channel slice of one
+// [B, C, L] output is not, at no extra pass.  Each block keeps a channel's
+// group as two ints in shared memory beside its factors.  A vector lies
+// inside one group where every group's first element in a row and a row's
+// C L elements are whole vectors; else the kernel goes one element at a
+// time.
 //
 // The bits are torch's.  torch rounds to the storage type after every op
 // and computes each op in float32, so the kernel rounds at the same points,
@@ -33,7 +45,10 @@
 //   factors  m = dt(mean), ve = dt(dt(var) + eps), inv = dt(rsqrtf(ve)),
 //            k = dt(inv * dt(scale)), b = dt(bias)
 //   output   y = dt(dt(dt(x - m) * k) + b)
-//   relu     isnan(y) ? y : dt(fmaxf(y, 0)), torch's clamp_min
+//   relu     isnan(y) ? y : dt(fmaxf(y, 0)), torch's clamp_min, on the
+//            leading relu_channels channels: 0 for none, C for all, and
+//            between them for a batch norm over sibling convs' outputs
+//            stacked, the relu's first (InceptionBlock's merged 1x1 convs)
 // where dt() rounds to the storage type (the identity in float32) and eps is
 // the module's 0-d epsilon tensor of the storage type.
 
@@ -51,10 +66,15 @@ constexpr int THREADS = 256;
 // the factors fit the 48 KB of dynamic shared memory a block has without
 // opting in (Inception's widest batch norm has 256 channels)
 constexpr int MAX_CHANNELS = 48 * 1024 / (3 * sizeof(float));
+// with groups, each channel's group (two ints) beside its factors
+constexpr int MAX_GROUPED_CHANNELS = 48 * 1024 / (3 * sizeof(float) + 8);
+constexpr int MAX_GROUPS = 8;
 
 struct Params {
   const void* x;
   void* out;
+  int groups;
+  int first[MAX_GROUPS + 1];   // each group's first channel, then C
   const float* mean;
   const float* var;
   const float* scale;
@@ -63,7 +83,7 @@ struct Params {
   long long n;
   int C;
   int L;
-  int relu;
+  int relu_channels;
 };
 
 template <typename T, int VEC>
@@ -106,12 +126,17 @@ __device__ __forceinline__ T normalize(T x, float m, float k, float b,
   return y;
 }
 
-template <typename T, int VEC>
+// GROUPED: the output comes in more than one group.  Element i of x, in
+// row (batch, c) of [B, C, L], goes to i + ((B - 1) first - batch (C -
+// C_g)) L of the output, its place in group g's [B, C_g, L] block, which
+// starts at B first L.
+template <typename T, int VEC, bool GROUPED>
 __global__ void __launch_bounds__(THREADS) bn_relu_kernel(const Params p) {
-  extern __shared__ float factors[];   // [3][C]: m, k, b
-  float* fm = factors;
-  float* fk = factors + p.C;
-  float* fb = factors + 2 * p.C;
+  extern __shared__ __align__(8) unsigned char shared[];
+  int2* group_of = reinterpret_cast<int2*>(shared);  // [C]: C - C_g, first
+  float* fm = reinterpret_cast<float*>(shared + (GROUPED ? 8 * p.C : 0));
+  float* fk = fm + p.C;
+  float* fb = fm + 2 * p.C;
   const T* x = static_cast<const T*>(p.x);
   T* out = static_cast<T*>(p.out);
   using V = Pack<T, VEC>;
@@ -129,24 +154,35 @@ __global__ void __launch_bounds__(THREADS) bn_relu_kernel(const Params p) {
     fm[c] = rounded<T>(p.mean[c]);
     fk[c] = rounded<T>(__fmul_rn(inv, rounded<T>(p.scale[c])));
     fb[c] = rounded<T>(p.bias[c]);
+    if (GROUPED) {
+      // constant indices: the parameters stay in the constant bank
+#pragma unroll
+      for (int g = 0; g < MAX_GROUPS; ++g)
+        if (g < p.groups && c >= p.first[g] && c < p.first[g + 1])
+          group_of[c] = make_int2(p.C - (p.first[g + 1] - p.first[g]),
+                                  p.first[g]);
+    }
   }
   __syncthreads();
+  const long long batches = p.n / (static_cast<long long>(p.C) * p.L);
 
-  // a grid stride moves the row position by ds and the channel by dc, plus
-  // one where the position wraps
+  // a grid stride moves the row position by ds, the channel by dc and the
+  // batch by db, plus one where the one below wraps
   const long long stride_rows = step * VEC / p.L;
   const int ds = static_cast<int>(step * VEC - stride_rows * p.L);
   const int dc = static_cast<int>(stride_rows % p.C);
+  const long long db = stride_rows / p.C;
   const long long row = v * VEC / p.L;
   int pos = static_cast<int>(v * VEC - row * p.L);
   int chan = static_cast<int>(row % p.C);
-  const bool relu = p.relu != 0;
+  long long batch = row / p.C;
   for (; v < nvec; v += step) {
     V next;
     if (v + step < nvec) next = reinterpret_cast<const V*>(x)[v + step];
     V r;
     int q = pos, c = chan;
     float m = fm[c], k = fk[c], b = fb[c];
+    bool relu = c < p.relu_channels;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       r.e[j] = normalize<T>(a.e[j], m, k, b, relu);
@@ -156,31 +192,48 @@ __global__ void __launch_bounds__(THREADS) bn_relu_kernel(const Params p) {
         m = fm[c];
         k = fk[c];
         b = fb[c];
+        relu = c < p.relu_channels;
       }
     }
-    reinterpret_cast<V*>(out)[v] = r;
+    long long o = v * VEC;
+    if (GROUPED) {
+      const int2 g = group_of[chan];
+      o += ((batches - 1) * g.y - batch * g.x) * p.L;
+    }
+    *reinterpret_cast<V*>(out + o) = r;
     a = next;
     pos += ds;
     chan += dc;
+    batch += db;
     if (pos >= p.L) {
       pos -= p.L;
       ++chan;
     }
-    if (chan >= p.C) chan -= p.C;
+    if (chan >= p.C) {
+      chan -= p.C;
+      ++batch;
+    }
   }
 
   // the last n % VEC elements, one a thread of block 0
   const long long e = nvec * VEC + threadIdx.x;
   if (blockIdx.x == 0 && e < p.n) {
-    const int c = static_cast<int>(e / p.L % p.C);
-    out[e] = normalize<T>(x[e], fm[c], fk[c], fb[c], relu);
+    const long long r = e / p.L;
+    const int c = static_cast<int>(r % p.C);
+    long long o = e;
+    if (GROUPED) {
+      const int2 g = group_of[c];
+      o += ((batches - 1) * g.y - r / p.C * g.x) * p.L;
+    }
+    out[o] = normalize<T>(x[e], fm[c], fk[c], fb[c], c < p.relu_channels);
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool GROUPED>
 int launch(const Params& p, void* stream) {
-  const int smem = static_cast<int>(3 * sizeof(float)) * p.C;
-  const auto kernel = bn_relu_kernel<T, VEC>;
+  const int smem = static_cast<int>(3 * sizeof(float) + (GROUPED ? 8 : 0)) *
+                   p.C;
+  const auto kernel = bn_relu_kernel<T, VEC, GROUPED>;
   cudaError_t err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
@@ -192,25 +245,40 @@ int launch(const Params& p, void* stream) {
   const long long needed = (p.n / VEC + THREADS - 1) / THREADS;
   const long long blocks = std::max(
       1LL, std::min(needed, static_cast<long long>(sms) * std::max(per_sm, 1)));
-  bn_relu_kernel<T, VEC><<<static_cast<unsigned>(blocks), THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int bn_relu(const void* x, void* out, const void* mean, const void* var,
             const void* scale, const void* bias, const void* eps, long long n,
-            int C, int L, int relu, void* stream) {
-  if (n < 0 || C < 1 || C > MAX_CHANNELS || L < 1)
+            int C, int L, int relu_channels, int groups,
+            const int* group_channels, void* stream) {
+  if (n < 0 || C < 1 || C > MAX_CHANNELS || L < 1 || relu_channels < 0 ||
+      relu_channels > C || groups < 1 || groups > MAX_GROUPS ||
+      (groups > 1 && C > MAX_GROUPED_CHANNELS))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{x, out, static_cast<const float*>(mean),
-                 static_cast<const float*>(var),
-                 static_cast<const float*>(scale),
-                 static_cast<const float*>(bias), eps, n, C, L, relu};
-  const bool aligned = ((reinterpret_cast<std::uintptr_t>(x) |
-                         reinterpret_cast<std::uintptr_t>(out)) % 16) == 0;
-  return aligned ? launch<T, static_cast<int>(16 / sizeof(T))>(p, stream)
-                 : launch<T, 1>(p, stream);
+  Params p{x, out, groups, {}, static_cast<const float*>(mean),
+           static_cast<const float*>(var), static_cast<const float*>(scale),
+           static_cast<const float*>(bias), eps, n, C, L, relu_channels};
+  constexpr int VEC = static_cast<int>(16 / sizeof(T));
+  // a vector of the fast path stays inside one group of one row
+  bool whole = groups == 1 || static_cast<long long>(C) * L % VEC == 0;
+  for (int g = 0; g < groups; ++g) {
+    if (group_channels[g] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    p.first[g + 1] = p.first[g] + group_channels[g];
+    whole = whole && static_cast<long long>(p.first[g]) * L % VEC == 0;
+  }
+  if (p.first[groups] != C) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vectors = whole && ((reinterpret_cast<std::uintptr_t>(x) |
+                                  reinterpret_cast<std::uintptr_t>(out)) %
+                                 16) == 0;
+  if (groups == 1)
+    return vectors ? launch<T, VEC, false>(p, stream)
+                   : launch<T, 1, false>(p, stream);
+  return vectors ? launch<T, VEC, true>(p, stream)
+                 : launch<T, 1, true>(p, stream);
 }
 
 }  // namespace
@@ -218,24 +286,30 @@ int bn_relu(const void* x, void* out, const void* mean, const void* var,
 extern "C" {
 
 // Each launch returns a cudaError_t: 0 when the kernel was launched.  x and
-// out are contiguous [B, C, L] tensors of the storage type with n = B C L
-// elements; mean, var, scale and bias float32 [C]; eps a 0-d tensor of the
-// storage type; relu 0 or 1.  At most 4,096 channels (their factors fill
+// out are contiguous tensors of the storage type with n = B C L elements, x
+// [B, C, L]; the output holds the groups' [B, C_g, L] blocks one after
+// another, C_g = group_channels[g], the groups' channels summing to C (1 to
+// 8 groups; one group is x's layout); mean, var, scale and bias float32
+// [C]; eps a 0-d tensor of the storage type; relu_channels the number of
+// leading channels the relu applies to, 0 (none) to C (all).  At most 4,096
+// channels, 2,457 with more than one group (their factors and groups fill
 // the 48 KB of shared memory a block has without opting in).
 int ds_bn_relu_f32(const void* x, void* out, const void* mean,
                    const void* var, const void* scale, const void* bias,
-                   const void* eps, long long n, int C, int L, int relu,
+                   const void* eps, long long n, int C, int L,
+                   int relu_channels, int groups, const int* group_channels,
                    void* stream) {
-  return bn_relu<float>(x, out, mean, var, scale, bias, eps, n, C, L, relu,
-                        stream);
+  return bn_relu<float>(x, out, mean, var, scale, bias, eps, n, C, L,
+                        relu_channels, groups, group_channels, stream);
 }
 
 int ds_bn_relu_bf16(const void* x, void* out, const void* mean,
                     const void* var, const void* scale, const void* bias,
-                    const void* eps, long long n, int C, int L, int relu,
+                    const void* eps, long long n, int C, int L,
+                    int relu_channels, int groups, const int* group_channels,
                     void* stream) {
-  return bn_relu<bf16>(x, out, mean, var, scale, bias, eps, n, C, L, relu,
-                       stream);
+  return bn_relu<bf16>(x, out, mean, var, scale, bias, eps, n, C, L,
+                       relu_channels, groups, group_channels, stream);
 }
 
 }  // extern "C"

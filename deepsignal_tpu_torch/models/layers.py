@@ -34,7 +34,14 @@ capture's path: the key holds the dtype, and autograd is off at both).
 Its 3-wide max-pools likewise (``pool_kernel_takes``) are one hand-written
 kernel each (``ops/cuda/max_pool.py``) that takes the -inf pad in its index
 arithmetic and writes no indices, with torch's bits; the record counts them
-as ``pool.kernel`` or ``pool.plain`` by the same rule.
+as ``pool.kernel`` or ``pool.plain`` by the same rule.  Every inference
+forward on the card, with autograd on or off (``merge_takes``), runs each
+block's five 1x1 convs that read the block's input as one conv and one
+batch norm (``InceptionBlock.merged_1x1``): 69 convs and 69 batch norms a
+forward of the published model in place of 113 each, the same dot products
+(on an H100 cuDNN sums them alike: the split path's bits in bfloat16 and
+float32).  The record counts the blocks as
+``conv.merged`` or ``conv.split`` by that rule at the forward's input.
 
 Modules take ``train`` (and ``keep_prob``, ``generator``) as arguments, as
 the flax modules do, and ignore ``nn.Module.training``.  Parameters are
@@ -199,9 +206,9 @@ class TFBatchNorm(nn.Module):
         return mean, (sum_over_data(sq, self.mesh) / n).to(x.dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                relu: bool = False) -> torch.Tensor:
-        """The normalized ``x``, and with ``relu`` the relu of it."""
-        eps = self._epsilon(x.dtype, x.device)
+                relu: int = 0) -> torch.Tensor:
+        """The normalized ``x``, the relu on its leading ``relu`` channels
+        (0 for none, C for all)."""
         if train:
             if self.mesh is None or self.mesh.data == 1:
                 mean = x.mean(dim=(0, 2))
@@ -213,11 +220,22 @@ class TFBatchNorm(nn.Module):
                                 + self._take * mean.float())
                 self.var.copy_(self._keep * self.var + self._take * var.float())
             return batch_norm_relu_plain(x, mean, var, self.scale, self.bias,
-                                         eps, relu)
-        takes = bn_kernel_takes(x.device.type, train, torch.is_grad_enabled(),
+                                         self._epsilon(x.dtype, x.device),
+                                         relu)
+        return self.infer(x, relu)
+
+    def infer(self, x: torch.Tensor, relu: int, groups=None, stats=None):
+        """Batch norm at inference with the running statistics: this
+        module's own, or ``stats`` (mean, var, scale, bias: several
+        modules' stacked, which share this one's epsilon); the kernel where
+        ``bn_kernel_takes`` holds, else the torch formula.  ``relu`` and
+        ``groups`` are ``batch_norm_relu``'s."""
+        if stats is None:
+            stats = (self.mean, self.var, self.scale, self.bias)
+        takes = bn_kernel_takes(x.device.type, False, torch.is_grad_enabled(),
                                 x.dtype, x.is_contiguous())
         norm = batch_norm_relu if takes else batch_norm_relu_plain
-        return norm(x, self.mean, self.var, self.scale, self.bias, eps, relu)
+        return norm(x, *stats, self._epsilon(x.dtype, x.device), relu, groups)
 
 
 class ConvBNRelu(nn.Module):
@@ -236,7 +254,7 @@ class ConvBNRelu(nn.Module):
         if any(pads):
             x = F.pad(x, pads)
         x = F.conv1d(x, self.weight.to(x.dtype), stride=self.stride)
-        return self.bn(x, train, self.use_relu)
+        return self.bn(x, train, x.shape[1] if self.use_relu else 0)
 
 
 def max_pool_same(x: torch.Tensor, window: int, stride: int,
@@ -249,8 +267,28 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int,
     return (max_pool if takes else max_pool_plain)(x, window, stride)
 
 
+def merge_takes(device_type: str, train: bool) -> bool:
+    """Whether an ``InceptionBlock`` runs its five 1x1 convs that read the
+    block's input as one conv (``InceptionBlock.merged_1x1``): an inference
+    forward on the card, with autograd on or off.  Training, whose batch
+    norms take the batch's statistics and move each module's running ones,
+    and the CPU run the five one by one."""
+    return device_type == "cuda" and not train
+
+
 class InceptionBlock(nn.Module):
-    """Five-branch inception block (layers.py:87-139); out = 15*times ch."""
+    """Five-branch inception block (layers.py:87-139); out = 15*times ch.
+
+    Five of its 1x1 convs read the block's input ``x``: branch 2's, the
+    first of branches 3, 4 and 5, and branch 5's stem.  Where
+    ``merge_takes`` holds they run as one conv of 12t output channels and
+    one batch norm over them (``merged_1x1``), so ``x`` is read once, not
+    five times; the parameters stay the five modules' own."""
+
+    # the 1x1 convs that read the block's input, in the merged conv's
+    # channel order: the 9t that take the relu first, the stem's 3t last
+    MERGED = ("branch2_conv0b", "branch3_conv0c", "branch4_conv0d",
+              "branch5_conv0e", "branch5_convstem")
 
     def __init__(self, in_ch: int, times: int = 16):
         super().__init__()
@@ -266,13 +304,39 @@ class InceptionBlock(nn.Module):
         self.branch5_conv1e = ConvBNRelu(2 * t, 4 * t, 3)
         self.branch5_conv2e = ConvBNRelu(4 * t, 3 * t, 1, use_relu=False)
 
+    def merged_convs(self) -> list:
+        return [getattr(self, name) for name in self.MERGED]
+
+    def merged_1x1(self, x: torch.Tensor) -> tuple:
+        """The ``MERGED`` convs' inference outputs from one conv and one
+        batch norm: the five weights stacked and cast once, their
+        statistics, scales and biases stacked, all inside the forward (so
+        inside a captured graph, which reads the modules' tensors at every
+        replay), the relu on the leading 9t channels.  Returns the five
+        outputs in ``MERGED`` order: the kernel writes each its own
+        contiguous tensor (the block's ``cat`` takes its vectorised copy
+        only from contiguous inputs), the torch formula gives channel
+        slices of one.  Each channel is the split conv's dot product over
+        the same values, accumulated in float32, which cuDNN may group
+        otherwise (on an H100 it does not, at the published model's
+        shapes)."""
+        convs = self.merged_convs()
+        y = F.conv1d(x, torch.cat([c.weight for c in convs]).to(x.dtype))
+        stats = [torch.cat([getattr(c.bn, k) for c in convs])
+                 for k in ("mean", "var", "scale", "bias")]
+        widths = [c.weight.shape[0] for c in convs]
+        relu = sum(w for w, c in zip(widths, convs) if c.use_relu)
+        # the five batch norms share the default epsilon
+        return convs[0].bn.infer(y, relu, widths, stats)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         b1 = self.branch1_conv1a(max_pool_same(x, 3, 1, train), train)
-        b2 = self.branch2_conv0b(x, train)
-        b3 = self.branch3_conv1c(self.branch3_conv0c(x, train), train)
-        b4 = self.branch4_conv1d(self.branch4_conv0d(x, train), train)
-        stem = self.branch5_convstem(x, train)
-        b5 = self.branch5_conv0e(x, train)
+        if merge_takes(x.device.type, train):
+            b2, b3, b4, b5, stem = self.merged_1x1(x)
+        else:
+            b2, b3, b4, b5, stem = (c(x, train) for c in self.merged_convs())
+        b3 = self.branch3_conv1c(b3, train)
+        b4 = self.branch4_conv1d(b4, train)
         b5 = self.branch5_conv2e(self.branch5_conv1e(b5, train), train)
         b5 = F.relu(stem + b5)
         return torch.cat([b1, b2, b3, b4, b5], dim=1)
@@ -341,12 +405,19 @@ class InceptionNet(nn.Module):
             out = self._eager(x, train)
         else:
             return self._eager(x, train)
+        if merge_takes(x.device.type, train):
+            count("conv.merged", sum(self.blocks))
+            # each block's five merged 1x1 convs share one batch norm
+            norms = len(self._norms) - 4 * sum(self.blocks)
+        else:
+            count("conv.split", sum(self.blocks))
+            norms = len(self._norms)
         # every batch norm's input is a convolution's output, every
         # max-pool's a batch norm's or a block's ``cat``: contiguous
         if bn_kernel_takes(x.device.type, train, grad, x.dtype, True):
-            count("bn.kernel", len(self._norms))
+            count("bn.kernel", norms)
         else:
-            count("bn.plain", len(self._norms))
+            count("bn.plain", norms)
         if pool_kernel_takes(x.device.type, train, grad, x.dtype, True):
             count("pool.kernel", len(self._pools))
         else:

@@ -2,7 +2,8 @@
 
 Batch norm at inference, ``(x - mean) * (rsqrt(var + eps) * scale) +
 bias`` over the channel axis of a [B, C, L] activation with the running
-statistics, and optionally the relu after it, in one pass that reads each
+statistics, and the relu after it on a leading block of the channels (none,
+all, or the first of a merged conv's outputs), in one pass that reads each
 element once and writes it once.  It replaces no TPU kernel (the JAX
 package leaves batch norm to XLA); on the card torch ran it as seven
 [C]-sized ops and four passes over the activation.  The kernel rounds
@@ -12,8 +13,15 @@ design.
 
 ``models.layers.TFBatchNorm`` launches it where ``bn_kernel_takes`` holds:
 an inference forward on the card (``train`` false, autograd off) of a
-contiguous bfloat16 or float32 activation.  Everything else (training,
-autograd, the CPU, other dtypes) runs ``batch_norm_relu_plain``.
+contiguous bfloat16 or float32 activation, and so does
+``InceptionBlock``'s merged 1x1 convs' batch norm.  Everything else
+(training, autograd, the CPU, other dtypes) runs ``batch_norm_relu_plain``.
+
+``relu`` is the number of leading channels the relu applies to, 0 to C
+(a bool is refused: it reads as 0 or 1 channel).  With ``groups``, channel
+counts that sum to C, the output comes as one [B, C_g, L] tensor a group:
+the kernel writes each group as a contiguous block of one buffer, the plain
+version returns channel slices of its one output.
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ LIBRARY = "bn_relu"
 # each channel's three float factors in a block's 48 KB of shared memory
 # (Inception's widest batch norm has 256 channels)
 MAX_CHANNELS = 48 * 1024 // 12
+MAX_GROUPS = 8
+# with groups, each channel's group (two ints) beside its factors
+MAX_GROUPED_CHANNELS = 48 * 1024 // 20
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -36,7 +47,7 @@ def _kernel_fn(dtype: torch.dtype):
     from .build import load_library
     fn = getattr(load_library(LIBRARY), f"ds_bn_relu_{_SUFFIX[dtype]}")
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -49,15 +60,29 @@ def bn_kernel_takes(device_type: str, train: bool, grad_enabled: bool,
             and dtype in _SUFFIX and contiguous)
 
 
-def batch_norm_relu_plain(x, mean, var, scale, bias, eps, relu: bool):
+def _relu_channels(relu: int, channels: int) -> int:
+    if isinstance(relu, bool) or not 0 <= relu <= channels:
+        raise ValueError(f"bn_relu's relu takes a count of 0 to {channels} "
+                         f"channels, got {relu!r}")
+    return int(relu)
+
+
+def batch_norm_relu_plain(x, mean, var, scale, bias, eps, relu: int,
+                          groups=None):
     """The function in torch ops, in x's dtype: ``mean``, ``var``,
     ``scale`` and ``bias`` [C] (cast to x's dtype here), ``eps`` a 0-d
-    tensor of x's dtype; differentiable."""
+    tensor of x's dtype, the relu on the leading ``relu`` channels, with
+    ``groups`` the output's channel slices; differentiable."""
     dt = x.dtype
     inv = torch.rsqrt(var.to(dt)[:, None] + eps)
     out = (x - mean.to(dt)[:, None]) * (inv * scale.to(dt)[:, None]) \
         + bias.to(dt)[:, None]
-    return torch.relu(out) if relu else out
+    r = _relu_channels(relu, x.shape[1])
+    if r == x.shape[1]:
+        out = torch.relu(out)
+    elif r > 0:
+        out = torch.cat((torch.relu(out[:, :r]), out[:, r:]), dim=1)
+    return out if groups is None else out.split(list(groups), dim=1)
 
 
 def _check(x, params, eps):
@@ -80,23 +105,46 @@ def _check(x, params, eps):
                          f"{x.device}")
 
 
-def batch_norm_relu(x, mean, var, scale, bias, eps, relu: bool):
+def _group_channels(groups, channels: int) -> list:
+    sizes = [int(g) for g in groups]
+    if (not 1 <= len(sizes) <= MAX_GROUPS or min(sizes) < 1
+            or sum(sizes) != channels
+            or (len(sizes) > 1 and channels > MAX_GROUPED_CHANNELS)):
+        raise ValueError(f"bn_relu's groups must be 1 to {MAX_GROUPS} "
+                         f"positive channel counts summing to {channels} "
+                         f"(more than one: at most {MAX_GROUPED_CHANNELS} "
+                         f"channels), got {sizes}")
+    return sizes
+
+
+def batch_norm_relu(x, mean, var, scale, bias, eps, relu: int,
+                    groups=None):
     """The kernel, on a CUDA [B, C, L] tensor: ``batch_norm_relu_plain``'s
-    arguments (the statistics, scale and bias float32), a new tensor out.
-    Launches on the current stream, does not synchronise."""
+    arguments (the statistics, scale and bias float32); a new tensor out,
+    or with ``groups`` a tuple of contiguous tensors, one a group, blocks
+    of one new buffer.  Launches on the current stream, does not
+    synchronise."""
     if x.device.type != "cuda":
         raise ValueError(f"bn_relu runs on cuda, not {x.device}")
     _check(x, (mean, var, scale, bias), eps)
+    b, c, n = x.shape
+    sizes = [c] if groups is None else _group_channels(groups, c)
+    relu = _relu_channels(relu, c)
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    if x.numel():
+        counts = (ctypes.c_int * len(sizes))(*sizes)
+        # a launch must come from the device of the stream it goes to
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _kernel_fn(x.dtype)(
+                x.data_ptr(), out.data_ptr(), mean.data_ptr(),
+                var.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                eps.data_ptr(), x.numel(), c, n, relu, len(sizes),
+                ctypes.addressof(counts), stream)
+        if err != 0:
+            raise RuntimeError(f"bn_relu kernel launch failed: cudaError "
+                               f"{err}")
+    if groups is None:
         return out
-    # a launch must come from the device of the stream it goes to
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn(x.dtype)(
-            x.data_ptr(), out.data_ptr(), mean.data_ptr(), var.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), eps.data_ptr(), x.numel(),
-            x.shape[1], x.shape[2], int(relu), stream)
-    if err != 0:
-        raise RuntimeError(f"bn_relu kernel launch failed: cudaError {err}")
-    return out
+    blocks = out.view(-1).split([b * g * n for g in sizes])
+    return tuple(block.view(b, g, n) for block, g in zip(blocks, sizes))

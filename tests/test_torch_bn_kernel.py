@@ -82,7 +82,7 @@ def test_cpu_batch_norm_keeps_the_bits_it_had(dtype, train, relu, grad):
     gradient bit for bit as before the kernel; and nothing counted."""
     outs, grads, stats = [], [], []
     t0 = time.perf_counter()
-    for fn in (lambda bn, x: bn(x, train, relu),
+    for fn in (lambda bn, x: bn(x, train, 48 if relu else 0),
                lambda bn, x: _bn_before(bn, x, train, relu)):
         bn, gen = _bn(5)
         x = torch.randn(6, 48, 23, generator=gen).to(dtype)
@@ -234,7 +234,7 @@ def test_the_wrapper_runs_on_cuda_only():
     x = torch.randn(2, 48, 9, generator=gen)
     with pytest.raises(ValueError, match="runs on cuda"):
         bn_relu.batch_norm_relu(x, bn.mean, bn.var, bn.scale, bn.bias,
-                                bn._epsilon(x.dtype, x.device), True)
+                                bn._epsilon(x.dtype, x.device), 48)
 
 
 def _case(**kw):

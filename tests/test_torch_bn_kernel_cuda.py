@@ -82,8 +82,9 @@ def test_kernel_bits_equal_the_torch_formula(cuda_device, dtype, relu, shape):
     x = _activation(B, c, n, dtype, cuda_device, stats[0], seed=c + n)
     with torch.inference_mode():
         want = batch_norm_relu_plain(x, *stats, _eps(dtype, cuda_device),
-                                     relu)
-        got = batch_norm_relu(x, *stats, _eps(dtype, cuda_device), relu)
+                                     c if relu else 0)
+        got = batch_norm_relu(x, *stats, _eps(dtype, cuda_device),
+                              c if relu else 0)
     torch.cuda.synchronize()
     assert _same_bits(got, want)
     assert bool(torch.isnan(got).any())
@@ -108,8 +109,8 @@ def test_kernel_factors_equal_torch_s_over_variances(cuda_device, dtype):
         x[1] = 1.0
         x[2, :, 0] = stats[0].to(dtype)
         with torch.inference_mode():
-            want = batch_norm_relu_plain(x, *stats, eps, False)
-            got = batch_norm_relu(x, *stats, eps, False)
+            want = batch_norm_relu_plain(x, *stats, eps, 0)
+            got = batch_norm_relu(x, *stats, eps, 0)
         assert _same_bits(got, want)
 
 
@@ -134,7 +135,7 @@ def test_kernel_takes_any_length_tail_and_base(cuda_device, dtype, shape,
         x = buf[offset:].view(b, c, n)
         assert x.is_contiguous() and x.data_ptr() % 16
     eps = _eps(dtype, cuda_device)
-    for relu in (False, True):
+    for relu in (0, c):
         with torch.inference_mode():
             want = batch_norm_relu_plain(x, *stats, eps, relu)
             got = batch_norm_relu(x, *stats, eps, relu)
@@ -149,8 +150,8 @@ def test_kernel_launches_on_the_current_stream(cuda_device):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.inference_mode(), torch.cuda.stream(side):
-        got = batch_norm_relu(x, *stats, eps, True)
-        want = batch_norm_relu_plain(x, *stats, eps, True)
+        got = batch_norm_relu(x, *stats, eps, 64)
+        want = batch_norm_relu_plain(x, *stats, eps, 64)
         same = torch.equal(got.view(torch.int16), want.view(torch.int16))
     torch.cuda.current_stream().wait_stream(side)
     assert bool(same)
@@ -162,16 +163,16 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     eps = _eps(torch.float32, cuda_device)
     x = torch.zeros(2, 8, 5, device=cuda_device)
     with pytest.raises(ValueError, match="runs on cuda"):
-        batch_norm_relu(x.cpu(), *stats, eps, True)
+        batch_norm_relu(x.cpu(), *stats, eps, 8)
     with pytest.raises(TypeError):
-        batch_norm_relu(x.half(), *stats, eps.half(), True)
+        batch_norm_relu(x.half(), *stats, eps.half(), 8)
     with pytest.raises(ValueError):
         batch_norm_relu(x.transpose(1, 2).contiguous().transpose(1, 2)
-                        [:, :, :4], *stats, eps, True)
+                        [:, :, :4], *stats, eps, 8)
     with pytest.raises(ValueError):
-        batch_norm_relu(x, *[s.cpu() for s in stats], eps, True)
+        batch_norm_relu(x, *[s.cpu() for s in stats], eps, 8)
     with pytest.raises(ValueError):
-        batch_norm_relu(x, *stats, eps.bfloat16(), True)
+        batch_norm_relu(x, *stats, eps.bfloat16(), 8)
 
 
 # --------------------------------------------------------------------------
@@ -247,11 +248,12 @@ def _counts(t0):
 
 @pytest.mark.cuda
 def test_inception_counts_batch_norms_by_path(cuda_device):
-    """Replays count the capture's 113 kernel batch norms, once a forward;
-    an eager inference forward counts its own; training counts nothing."""
+    """Replays count the capture's 69 kernel batch norms (113 less the 44
+    that each block's merged 1x1 convs share), once a forward; an eager
+    inference forward counts its own; training counts nothing."""
     net = _inception(cuda_device)
-    n = len(net._norms)
-    assert n == 113
+    n = len(net._norms) - 4 * sum(net.blocks)
+    assert n == 69
     x = _signals(64, torch.bfloat16, cuda_device, 7)
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -288,8 +290,9 @@ def _kernel_runs(fn) -> int:
 
 @pytest.mark.cuda
 def test_the_card_runs_the_kernel_for_every_batch_norm(cuda_device):
-    """Seen where the card runs them: 113 kernels a replayed or eager
-    inference forward, none with autograd on or in training."""
+    """Seen where the card runs them: 69 kernels a replayed or eager
+    inference forward (each block's five merged 1x1 convs share one), none
+    with autograd on or in training."""
     net = _inception(cuda_device)
     x = _signals(64, torch.bfloat16, cuda_device, 8)
     with torch.inference_mode():
@@ -304,7 +307,7 @@ def test_the_card_runs_the_kernel_for_every_batch_norm(cuda_device):
         with torch.inference_mode(), \
                 mock.patch.object(layers, "graph_takes", lambda *a: False):
             net(x)
-    assert _kernel_runs(replays) == 2 * 113
-    assert _kernel_runs(eager) == 113
+    assert _kernel_runs(replays) == 2 * 69
+    assert _kernel_runs(eager) == 69
     assert _kernel_runs(lambda: net(x)) == 0
     assert _kernel_runs(lambda: net(x.float(), train=True)) == 0

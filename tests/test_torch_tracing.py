@@ -32,7 +32,7 @@ from tests import torch_tiny as tt
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "deepsignal_tpu_torch"
 PREFIXES = ("pipeline.", "reader.", "caller.", "model.", "trainer.",
-            "lstm.", "inception.", "bn.", "pool.")
+            "lstm.", "inception.", "bn.", "pool.", "conv.")
 # the ranges the benchmark's harness opens around the objects it drives
 HARNESS_RANGES = {"read_wait", "dispatch", "collect", "forward", "encoder",
                   "inception", "head", "step", "resolve", "stage"}
@@ -371,6 +371,7 @@ def test_no_program_span_takes_a_harness_range_name():
             "trainer.restore", "trainer.resolve",
             "trainer.stage", "inception.graph_replay", "inception.eager",
             "bn.kernel", "bn.plain", "pool.kernel", "pool.plain",
+            "conv.merged", "conv.split",
             *CALLER_SPANS, *STEP_CHILDREN} <= set(names)
     assert [n for n in names if not n.startswith(PREFIXES)] == []
     assert set(names) & _harness_ranges() == set()
