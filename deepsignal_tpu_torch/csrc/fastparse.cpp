@@ -5,7 +5,9 @@
 // PyTorch port, bound with ctypes instead of the CPython C API: the caller
 // counts the rows with ds_count_feature_rows, allocates the numpy outputs
 // and passes them in, and gets each row's sampleinfo back as a byte range
-// of the block.  Rows are the 12-column deepsignal feature rows: chrom, pos,
+// of the block.  ds_read_full reads a chunk of a TSV and
+// ds_find_read_batch_ends finds in it where the reader's read-grouped
+// batches end.  Rows are the 12-column deepsignal feature rows: chrom, pos,
 // strand, pos_in_strand, readname, read_strand, k_mer, means csv, stds csv,
 // lens csv, cent_signals csv, label.
 //
@@ -24,6 +26,9 @@
 // object does): strtof and strtol, as in the reference, read up to the
 // first character that is not part of a number.
 
+#include <unistd.h>
+
+#include <cerrno>
 #include <charconv>
 #include <cstdint>
 #include <cstdlib>
@@ -179,6 +184,93 @@ int ds_parse_feature_block(const char* data, int64_t len, int32_t kmer_len,
     p = nl ? nl + 1 : end;
   }
   return r == n ? 0 : -1;
+}
+
+// Read fd into buf[0, len) until it is full or the input ends: a pipe gives
+// at most its own buffer a read, and one call here holds no interpreter
+// lock between those reads.  Returns the bytes read and sets *at_eof when
+// the input ended; an interrupted read returns what was read so far, for
+// the caller to handle its signals and call again; -errno on an error.
+int64_t ds_read_full(int32_t fd, char* buf, int64_t len, int32_t* at_eof) {
+  int64_t got = 0;
+  *at_eof = 0;
+  while (got < len) {
+    const ssize_t r = read(fd, buf + got, static_cast<size_t>(len - got));
+    if (r == 0) {
+      *at_eof = 1;
+      break;
+    }
+    if (r < 0) {
+      if (errno == EINTR) break;
+      return -errno;
+    }
+    got += r;
+  }
+  return got;
+}
+
+// The ends of read-grouped batches in a chunk of feature rows, for the
+// reader that groups a TSV by read (call_modifications.py:35-91): a batch
+// ends where the reads_per_batch-th, 2 * reads_per_batch-th, ... change of
+// read name begins, counted from the first row of the file.  A row's read
+// name is its fifth tab-separated field as line.split(b"\t", 5)[4] takes
+// it: from the fourth tab to the fifth, or to the row's end, newline
+// included, when the row has no fifth tab.
+//
+// The chunk holds rows in file order; a last row without its newline is
+// scanned only when at_eof.  prev[0, prev_len) is the read name of the row
+// before the chunk (prev_len < 0 before the file's first row).  state[0]
+// holds the reads completed so far and is updated; on return state[1],
+// state[2] are the last scanned row's read name as [start, end) offsets of
+// data (-1 when no row was scanned), state[3] the bytes of the rows
+// scanned, state[4] their count, and state[5] the chunk's first row with
+// fewer than five fields (-1 for none), where the scan stopped.  Writes the
+// offsets at which a batch ends into ends and returns their count, or -1
+// when they outnumber max_ends.
+int64_t ds_find_read_batch_ends(const char* data, int64_t len, int32_t at_eof,
+                                const char* prev, int64_t prev_len,
+                                int64_t reads_per_batch, int64_t* ends,
+                                int64_t max_ends, int64_t* state) {
+  const char* end = data + len;
+  const char* name = prev;
+  int64_t name_len = prev_len;
+  int64_t reads = state[0], n_ends = 0, rows = 0;
+  state[1] = state[2] = state[5] = -1;
+  const char* p = data;
+  while (p < end) {
+    const char* nl = static_cast<const char*>(memchr(p, '\n', end - p));
+    if (!nl && !at_eof) break;
+    const char* row_end = nl ? nl + 1 : end;
+    const char* q = p;
+    int tabs = 0;
+    for (; tabs < 4; tabs++) {
+      const char* t = find_tab(q, row_end);
+      if (!t) break;
+      q = t + 1;
+    }
+    if (tabs < 4) {
+      state[5] = rows;
+      break;
+    }
+    const char* t = find_tab(q, row_end);
+    const int64_t q_len = (t ? t : row_end) - q;
+    if (name_len >= 0 &&
+        (q_len != name_len || memcmp(q, name, q_len) != 0) &&
+        ++reads % reads_per_batch == 0) {
+      if (n_ends >= max_ends) return -1;
+      ends[n_ends++] = p - data;
+    }
+    name = q;
+    name_len = q_len;
+    state[1] = q - data;
+    state[2] = q - data + q_len;
+    rows++;
+    p = row_end;
+  }
+  state[0] = reads;
+  state[3] = p - data;
+  state[4] = rows;
+  return n_ends;
 }
 
 }  // extern "C"

@@ -17,6 +17,9 @@ tf_utils.py:7-28): for k=17, s=360 -> 1,628 bytes.
 from __future__ import annotations
 
 import dataclasses
+import os
+import queue
+import threading
 from typing import Iterator, Optional
 
 import numpy as np
@@ -24,6 +27,16 @@ import numpy as np
 from ..core.constants import BASE2CODE_DNA
 from ..core.logging import count, span
 from . import native
+
+# the read-grouping reader (``_read_grouped_blocks``): bytes read at a time,
+# chunks read ahead of the scan, room in front of a chunk for the partial
+# row carried into it, how long a blocked put waits before it checks for a
+# close, and the reading thread's name
+GROUP_CHUNK_BYTES = 4 << 20
+CHUNKS_AHEAD = 2
+CARRY_ROOM = 64 << 10
+CHUNK_POLL_S = 0.1
+CHUNK_READER_NAME = "feature-chunks"
 
 # k-mer encode table: A/C/G/T as the DNA codes, U as 3 (RNA k-mers), anything
 # else N=4; the alphabet is chosen when the k-mer is decoded again
@@ -242,13 +255,17 @@ def iter_feature_batches_by_read(features_file: str,
     at k, the per-rank stride partition of a feature TSV: every rank
     computes the same global grouping, so the shards are disjoint and their
     union is exactly the unsharded stream.  The batches of other ranks are
-    only line-grouped, never parsed.
+    only scanned, never joined or parsed.
 
-    Lines are read as bytes and go to the native parser as one block, with
-    no decode and encode of each line; rows split by "\\n" (or "\\r\\n")
-    give the batches the text-mode read of the JAX package gives.  Each
-    batch is a ``reader.group`` span (reading and grouping its lines), a
-    ``reader.parse`` span and a ``reader.rows`` count."""
+    A thread reads the file ahead in large chunks, and a native scan
+    groups them (``_read_grouped_blocks``); a batch's rows go to the native
+    parser as one block, with no decode and encode of each line; rows split
+    by "\\n" (or "\\r\\n") give the batches the text-mode read of the JAX
+    package gives.  Each batch is a ``reader.group`` span (the wait for
+    the chunks that hold its rows and their grouping), a ``reader.parse``
+    span and a ``reader.rows`` count; one more ``reader.group`` span ends
+    the stream, with what was read after the last batch.  A row with fewer
+    than five fields raises ValueError."""
     blocks = _read_grouped_blocks(features_file, reads_per_batch, host_shard)
     try:
         while True:
@@ -265,8 +282,123 @@ def iter_feature_batches_by_read(features_file: str,
 
 
 def _read_grouped_blocks(features_file: str, reads_per_batch: int,
-                         host_shard) -> Iterator[bytes]:
-    """The lines of each of this shard's read-grouped batches, joined."""
+                         host_shard, chunk_bytes: int = GROUP_CHUNK_BYTES
+                         ) -> Iterator[bytes]:
+    """The rows of each of this shard's read-grouped batches, joined: the
+    blocks of ``_read_grouped_blocks_plain``, byte for byte.  A thread reads
+    the file ahead in chunks of ``chunk_bytes`` (``_ChunkReader``); the
+    native scan (``native.find_read_batch_ends``) finds where the batches
+    end, and a batch is sliced from its chunks, with no Python work a row.
+    Other shards' batches are skipped, never joined.  A row with fewer than
+    five fields raises ValueError with its line number, after the batches
+    that end before it."""
+    k, n = host_shard if host_shard is not None else (0, 1)
+    chunks = _ChunkReader(features_file, chunk_bytes)
+    carry = b""        # the partial last row of the chunk before
+    pieces: list = []  # this shard's open batch, views of earlier chunks
+    name: Optional[bytes] = None
+    reads = b_num = lines = 0
+    try:
+        for buf, end, at_eof in chunks:
+            chunk = _after_carry(carry, buf, end)
+            if not chunk.size:
+                continue
+            ends, used, rows, name, reads, bad = native.find_read_batch_ends(
+                chunk, chunk.size, at_eof, name, reads, reads_per_batch)
+            view = memoryview(chunk)
+            start = 0
+            for stop in ends:
+                if b_num % n == k:
+                    pieces.append(view[start:stop])
+                    yield b"".join(pieces)
+                pieces = []
+                b_num += 1
+                start = stop
+            if bad >= 0:
+                raise ValueError(
+                    f"malformed feature row at line {lines + bad + 1}")
+            lines += rows
+            if b_num % n == k and used > start:
+                pieces.append(view[start:used])
+            carry = view[used:].tobytes()
+        if pieces:
+            yield b"".join(pieces)
+    finally:
+        chunks.close()
+
+
+def _after_carry(carry: bytes, buf: np.ndarray, end: int) -> np.ndarray:
+    """The carried partial row, then the chunk ``buf[CARRY_ROOM:end]``:
+    written into the room in front of the chunk where it fits."""
+    if len(carry) <= CARRY_ROOM:
+        lo = CARRY_ROOM - len(carry)
+        buf[lo:CARRY_ROOM] = np.frombuffer(carry, np.uint8)
+        return buf[lo:end]
+    return np.concatenate([np.frombuffer(carry, np.uint8),
+                           buf[CARRY_ROOM:end]])
+
+
+class _ChunkReader:
+    """The chunks of a file, read ahead by a thread of its own while the
+    scan and the parse run: iterating gives ``(buf, end, at_eof)``, each
+    chunk in ``buf[CARRY_ROOM:end]`` of a buffer of its own, so that a batch
+    is sliced from it without a copy.  One native call reads a chunk
+    (``native.read_full``: a pipe gives 64 KiB a read, and the thread takes
+    the interpreter lock once a chunk).  An error of the thread is raised
+    by the iteration.  ``close()`` stops the thread, which closes the file;
+    a thread blocked on a silent pipe ends when the pipe gives data or
+    ends."""
+
+    def __init__(self, path: str, chunk_bytes: int):
+        self._fd = os.open(path, os.O_RDONLY)
+        self._size = CARRY_ROOM + max(int(chunk_bytes), 1)
+        self._queue: queue.Queue = queue.Queue(maxsize=CHUNKS_AHEAD)
+        self._stop = threading.Event()
+        threading.Thread(target=self._read, name=CHUNK_READER_NAME,
+                         daemon=True).start()
+
+    def _read(self) -> None:
+        try:
+            at_eof = False
+            while not at_eof:
+                buf = np.empty(self._size, np.uint8)
+                end = CARRY_ROOM
+                while end < buf.size and not at_eof:
+                    got, at_eof = native.read_full(self._fd, buf, end)
+                    end += got
+                if not self._put((buf, end, at_eof)):
+                    return
+        except Exception as exc:  # handed to the consumer, which raises it
+            self._put(exc)
+        finally:
+            os.close(self._fd)
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=CHUNK_POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def __iter__(self):
+        while True:
+            item = self._queue.get()
+            if isinstance(item, Exception):
+                raise item
+            yield item
+            if item[2]:
+                return
+
+    def close(self) -> None:
+        self._stop.set()
+
+
+def _read_grouped_blocks_plain(features_file: str, reads_per_batch: int,
+                               host_shard) -> Iterator[bytes]:
+    """The plain version of ``_read_grouped_blocks``: the file's lines one
+    by one, each split in Python for its read name."""
     k, n = host_shard if host_shard is not None else (0, 1)
     pending: list = []
     readid_pre: Optional[bytes] = None

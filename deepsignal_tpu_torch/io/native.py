@@ -2,7 +2,8 @@
 
 - ``parse_feature_block``: the feature-TSV block parser
   (``csrc/fastparse.cpp``), a copy of the reference package's
-  ``native/fastparse.cpp``;
+  ``native/fastparse.cpp``; ``read_full`` and ``find_read_batch_ends``,
+  in the same library, the reading and read grouping of the TSV reader;
 - ``format_call_block``, ``count_read_runs``, ``repr_f32``: the call-row
   formatter (``csrc/callfmt.cpp``), a copy of the call-row half of its
   ``native/featkernel.cpp``;
@@ -13,16 +14,19 @@
 The libraries are built with the host compiler at first use
 (``ops/cuda/build.py``) and loaded with ctypes; a failed build raises.
 Every output is allocated here and checked for size before a pointer goes
-to the C side.  ``parse_feature_block``, ``format_call_block``,
-``count_read_runs``, ``segment_stats`` and ``format_rows6`` count their
-calls (``.calls``), so a run can show that it went through the native
-code.  This module imports numpy only.
+to the C side.  ``parse_feature_block``, ``read_full``,
+``find_read_batch_ends``, ``format_call_block``, ``count_read_runs``,
+``segment_stats`` and ``format_rows6`` count their calls (``.calls``), so
+a run can show that it went through the native code.  This module imports
+numpy only.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
+from typing import Optional
 
 import numpy as np
 
@@ -55,6 +59,11 @@ def _fastparse() -> ctypes.CDLL:
         ctypes.c_char_p, _I64, _I32, _I32, _I64, _PTR, _PTR, _PTR, _PTR,
         _PTR, _PTR, _PTR, ctypes.POINTER(_I64)]
     lib.ds_parse_feature_block.restype = ctypes.c_int
+    lib.ds_find_read_batch_ends.argtypes = [
+        _PTR, _I64, _I32, ctypes.c_char_p, _I64, _I64, _PTR, _I64, _PTR]
+    lib.ds_find_read_batch_ends.restype = _I64
+    lib.ds_read_full.argtypes = [_I32, _PTR, _I64, ctypes.POINTER(_I32)]
+    lib.ds_read_full.restype = _I64
     return lib
 
 
@@ -190,6 +199,70 @@ def parse_feature_block(block: bytes, kmer_len: int, signal_len: int):
     return sampleinfo, kmers, means, stds, lens, signals, labels
 
 
+def read_full(fd: int, buf: np.ndarray, start: int) -> tuple:
+    """Read the file descriptor ``fd`` into ``buf[start:]`` (uint8) until
+    the buffer is full or the input ends, in one native call.  Returns
+    ``(bytes read, whether the input ended)``; an interrupted read returns
+    what it read so far and False, so that the caller's signal handlers
+    run before it calls again.  An error raises OSError."""
+    if buf.dtype != np.uint8 or buf.ndim != 1 or not buf.flags.c_contiguous \
+            or not buf.flags.writeable:
+        raise ValueError("buf must be a writeable contiguous 1-D uint8 "
+                         "array")
+    if not 0 <= start <= buf.size:
+        raise ValueError(f"start {start} outside the buffer's {buf.size} "
+                         f"bytes")
+    at_eof = _I32(0)
+    got = _fastparse().ds_read_full(fd, _ptr(buf) + start, buf.size - start,
+                                    ctypes.byref(at_eof))
+    if got < 0:
+        raise OSError(-got, os.strerror(-got))
+    read_full.calls += 1
+    return got, bool(at_eof.value)
+
+
+def find_read_batch_ends(chunk: np.ndarray, length: int, at_eof: bool,
+                         prev_name: Optional[bytes], reads_done: int,
+                         reads_per_batch: int) -> tuple:
+    """Where read-grouped batches end in the feature rows of
+    ``chunk[:length]`` (uint8), rows in file order: a batch ends where the
+    ``reads_per_batch``-th, 2 * ``reads_per_batch``-th, ... change of read
+    name (the fifth tab field, as ``line.split(b"\t", 5)[4]``) begins.
+    ``prev_name`` is the read name of the row before the chunk (None before
+    the file's first row) and ``reads_done`` the changes of read counted
+    before it.  A last row without its newline is scanned only ``at_eof``.
+
+    Returns ``(ends, used, rows, last_name, reads_done, bad_row)``: the
+    batch ends as a list of offsets of the chunk, the bytes and the count
+    of the rows scanned, the read name of the last of them (``prev_name``
+    when none was), the changes of read counted so far, and the chunk's
+    first row with fewer than five fields (-1 for none), where the scan
+    stopped."""
+    if chunk.dtype != np.uint8 or chunk.ndim != 1 or \
+            not chunk.flags.c_contiguous:
+        raise ValueError("chunk must be a contiguous 1-D uint8 array")
+    if not 0 <= length <= chunk.size:
+        raise ValueError(f"length {length} outside the chunk's "
+                         f"{chunk.size} bytes")
+    if reads_per_batch < 1:
+        raise ValueError(f"reads_per_batch {reads_per_batch} must be >= 1")
+    # every row but the last holds four tabs and a newline
+    cap = length // 5 + 1
+    ends = np.empty(cap, np.int64)
+    state = np.array([reads_done, 0, 0, 0, 0, 0], np.int64)
+    prev_len = -1 if prev_name is None else len(prev_name)
+    n = _fastparse().ds_find_read_batch_ends(
+        _ptr(chunk), length, int(at_eof), prev_name, prev_len,
+        reads_per_batch, _ptr(ends), cap, _ptr(state))
+    if n < 0:
+        raise RuntimeError("ds_find_read_batch_ends: more ends than rows")
+    find_read_batch_ends.calls += 1
+    reads_done, start, stop, used, rows, bad_row = state.tolist()
+    if start >= 0:
+        prev_name = chunk[start:stop].tobytes()
+    return ends[:n].tolist(), used, rows, prev_name, reads_done, bad_row
+
+
 def _join(strings) -> tuple:
     """Strings -> (one utf-8 buffer, [n + 1] int64 byte offsets)."""
     enc = [s.encode() for s in strings]
@@ -266,6 +339,8 @@ def repr_f32(x, positional=None) -> list:
 
 # calls since the last reset, counted where the native code ran
 parse_feature_block.calls = 0
+find_read_batch_ends.calls = 0
+read_full.calls = 0
 format_call_block.calls = 0
 count_read_runs.calls = 0
 segment_stats.calls = 0
