@@ -22,9 +22,17 @@ PyTorch's defaults, the TF rule is written out:
 On the card, an inference forward of ``InceptionNet`` with autograd off
 (``graph_takes``) replays a CUDA graph of its own eager forward, captured
 once per input shape, dtype, device and parameter storage: one launch in
-place of ~1,700, the same kernels and the same bits.  Training, autograd
-and the CPU run eagerly.  The process's record counts each inference
-forward on the card as ``inception.graph_replay`` or ``inception.eager``.
+place of ~1,700, the same kernels and the same bits; with autograd on,
+and on the CPU, it runs eagerly.  The process's record counts each
+inference forward on the card as ``inception.graph_replay`` or
+``inception.eager``.
+A training forward on the card with autograd on, on no mesh or a mesh of
+one data rank (``train_graph_takes``), likewise replays a graph of the
+eager training forward, and its backward a graph of that forward's
+backward (``_TrainReplay``): two launches in place of ~1,700 each, the
+same kernels, the batch statistics and the running statistics' update
+inside the forward's graph.  The record counts each training forward on
+the card as ``inception.train_graph_replay`` or ``inception.train_eager``.
 Inside it, batch norm with autograd off (``bn_kernel_takes``) is one
 hand-written kernel with the relu after it (``ops/cuda/bn_relu.py``), one
 pass over the activation with torch's bits; the record counts each
@@ -59,12 +67,15 @@ axis fc1's output rows are sharded and its activation all-gathered.
 
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+from torch.autograd.function import once_differentiable
 
 from ..core.logging import count
 from ..ops.cuda.bn_relu import (batch_norm_relu, batch_norm_relu_plain,
@@ -348,8 +359,79 @@ GRAPHS_KEPT = 4   # captured forwards an InceptionNet keeps, newest used
 def graph_takes(device_type: str, train: bool, grad_enabled: bool) -> bool:
     """Whether ``InceptionNet.forward`` replays a CUDA graph: an inference
     forward on the card with autograd off (``no_grad``,
-    ``inference_mode``).  Training, autograd and the CPU run eagerly."""
+    ``inference_mode``).  Autograd and the CPU run eagerly; training has
+    graphs of its own (``train_graph_takes``)."""
     return device_type == "cuda" and not train and not grad_enabled
+
+
+def train_graph_takes(device_type: str, train: bool, grad_enabled: bool,
+                      mesh) -> bool:
+    """Whether a training forward of ``InceptionNet`` replays CUDA graphs
+    of its eager forward and backward (``_TrainReplay``): on the card with
+    autograd on, on no mesh or a mesh of one data rank.  On more data ranks
+    batch norm all-reduces the batch's statistics over the data group
+    (``TFBatchNorm._global_stats``) and the forward stays eager; so do
+    inference, training under ``no_grad`` and the CPU."""
+    return (device_type == "cuda" and train and grad_enabled
+            and (mesh is None or mesh.data == 1))
+
+
+class _TrainGraphs:
+    """A training forward of ``InceptionNet`` captured as a CUDA graph, and
+    its backward as another in the same memory pool: the static input
+    ``x``, output ``out``, output gradient ``grad_out`` and flat gradients
+    ``grads`` of the parameters ``wanted`` (those of the forward's that
+    require one: where ``takes_grad`` holds) that the replays read and
+    write.  ``last`` is a weak reference to the autograd node of the newest
+    forward replay, ``pending`` whether its backward is still to run: the
+    graphs hold one step's activations at a time."""
+
+    def __init__(self, forward, backward, x, out, grad_out, grads, wanted,
+                 takes_grad: tuple):
+        self.forward, self.backward = forward, backward
+        self.x, self.out, self.grad_out = x, out, grad_out
+        self.grads, self.wanted, self.takes_grad = grads, wanted, takes_grad
+        self.last, self.pending = None, False
+
+    def busy(self) -> bool:
+        """Whether a forward replay's backward is still to run while its
+        autograd graph lives: another replay would overwrite the
+        activations it needs."""
+        return self.pending and self.last() is not None
+
+
+class _TrainReplay(torch.autograd.Function):
+    """Inception's training forward as one replay of its captured graph
+    (which moves the batch norms' running statistics, as the eager forward
+    does), its backward as one replay of the other.  The parameters'
+    gradients reach them through autograd as the eager forward's do, each
+    a view of a fresh copy of the graph's flat gradients, so that the next
+    replay leaves them be."""
+
+    @staticmethod
+    def forward(ctx, entry, x, *params):
+        entry.x.copy_(x)
+        entry.forward.replay()
+        ctx.entry = entry
+        entry.last, entry.pending = weakref.ref(ctx), True
+        return entry.out.clone()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        entry = ctx.entry
+        if not entry.pending or entry.last() is not ctx:
+            raise RuntimeError(
+                "InceptionNet's training graph runs one backward per forward: "
+                "its activations are gone (a second backward, or a later "
+                "forward replayed over them)")
+        entry.pending = False
+        entry.grad_out.copy_(grad_out)
+        entry.backward.replay()
+        grads = iter(_unflatten_dense_tensors(entry.grads.clone(),
+                                              entry.wanted))
+        return (None, None, *(next(grads) if takes else None
+                              for takes in entry.takes_grad))
 
 
 class InceptionNet(nn.Module):
@@ -361,7 +443,15 @@ class InceptionNet(nn.Module):
     input's shape, dtype and device and the address of every parameter and
     buffer.  So a tensor replaced (``load_state_dict(..., assign=True)``,
     ``.to()``) makes a new capture, while an update in place shows at the
-    next replay.  The newest ``GRAPHS_KEPT`` graphs are kept."""
+    next replay.  The newest ``GRAPHS_KEPT`` graphs are kept.
+
+    Where ``train_graph_takes`` holds, a training forward replays a graph
+    of the eager training forward and its backward a graph of that
+    forward's backward (``_TrainReplay``), captured at the first such call
+    of each key (the same, with whether each parameter requires a
+    gradient) and kept likewise in a cache of their own.  A training
+    forward whose input requires a gradient, or whose graphs still hold
+    activations that a backward to come needs, runs eagerly."""
 
     def __init__(self, signal_len: int, times: int = 16,
                  blocks: tuple = (3, 5, 3)):
@@ -387,7 +477,10 @@ class InceptionNet(nn.Module):
         self._slots = [(table, name) for m in self.modules()
                        for table in (m._parameters, m._buffers)
                        for name in table]
+        self._params = [(m._parameters, name) for m in self.modules()
+                        for name in m._parameters]
         self._graphs = OrderedDict()
+        self._train_graphs = OrderedDict()
         self._norms = [m for m in self.modules()
                        if isinstance(m, TFBatchNorm)]
         # (window, stride) of a forward's max-pools: one of stride 2 at the
@@ -397,10 +490,12 @@ class InceptionNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         grad = torch.is_grad_enabled()
+        if train:
+            return self._train(x, grad)
         if graph_takes(x.device.type, train, grad):
             count("inception.graph_replay", 1)
             out = self._replay(x)
-        elif x.is_cuda and not train:
+        elif x.is_cuda:
             count("inception.eager", 1)
             out = self._eager(x, train)
         else:
@@ -424,6 +519,28 @@ class InceptionNet(nn.Module):
             count("pool.plain", len(self._pools))
         return out
 
+    def _train(self, x: torch.Tensor, grad: bool) -> torch.Tensor:
+        """A training forward: ``_TrainReplay`` where ``train_graph_takes``
+        holds, some parameter and not the input requires a gradient, and
+        the key's graphs are free; else the eager forward."""
+        if train_graph_takes(x.device.type, True, grad, self._norms[0].mesh):
+            params = [table[name] for table, name in self._params]
+            wants = tuple(p.requires_grad for p in params)
+            if any(wants) and not x.requires_grad:
+                key = (*self._key(x), wants)
+                entry = self._train_graphs.pop(key, None)
+                if entry is None:
+                    entry = self._capture_train(x, params, wants)
+                    while len(self._train_graphs) >= GRAPHS_KEPT:
+                        self._train_graphs.popitem(last=False)
+                self._train_graphs[key] = entry
+                if not entry.busy():
+                    count("inception.train_graph_replay", 1)
+                    return _TrainReplay.apply(entry, x, *params)
+        if x.is_cuda:
+            count("inception.train_eager", 1)
+        return self._eager(x, True)
+
     def _eager(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x = self.conv_layer1(x, train)
         x = max_pool_same(x, 3, 2, train)
@@ -438,12 +555,17 @@ class InceptionNet(nn.Module):
         x = F.avg_pool1d(x, 7, 1, padding=3, count_include_pad=False)
         return x.transpose(1, 2).reshape(x.shape[0], -1)
 
+    def _key(self, x: torch.Tensor) -> tuple:
+        """A graph's key: x's shape, dtype and device and the address of
+        every parameter and buffer."""
+        return (tuple(x.shape), x.dtype, x.device,
+                tuple(table[name].data_ptr() for table, name in self._slots))
+
     def _replay(self, x: torch.Tensor) -> torch.Tensor:
         """The eager forward's output through the key's graph: ``x`` copied
         into the graph's input, one replay, the output cloned so that the
         next replay leaves it be."""
-        key = (tuple(x.shape), x.dtype, x.device,
-               tuple(table[name].data_ptr() for table, name in self._slots))
+        key = self._key(x)
         with torch.inference_mode():
             entry = self._graphs.pop(key, None)
             if entry is None:
@@ -473,6 +595,41 @@ class InceptionNet(nn.Module):
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 static_out = self._eager(static_x, False)
         return graph, static_x, static_out
+
+    def _capture_train(self, x: torch.Tensor, params: list,
+                       takes_grad: tuple) -> _TrainGraphs:
+        """The graphs of the eager training forward at x's shape, dtype and
+        device and of its backward to each parameter where ``takes_grad``
+        holds.  One warm-up forward and backward on a side stream, then the
+        captures, as ``torch.cuda.make_graphed_callables`` makes them.  The
+        warm-up moves the running statistics, which are put back: the
+        capture runs nothing, so the first replay moves them once, as an
+        eager step does."""
+        wanted = [p for p, takes in zip(params, takes_grad) if takes]
+        running = [t for m in self._norms for t in (m.mean, m.var)]
+        with torch.cuda.device(x.device):
+            static_x = x.contiguous().clone()
+            saved = [t.clone() for t in running]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                out = self._eager(static_x, True)
+                torch.autograd.grad(out, wanted, torch.ones_like(out))
+                del out
+            torch.cuda.current_stream().wait_stream(side)
+            for t, s in zip(running, saved):
+                t.copy_(s)
+            forward, backward = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            # thread_local: a trainer's staging thread may copy meanwhile
+            with torch.cuda.graph(forward, capture_error_mode="thread_local"):
+                static_out = self._eager(static_x, True)
+            grad_out = torch.empty_like(static_out)
+            with torch.cuda.graph(backward, pool=forward.pool(),
+                                  capture_error_mode="thread_local"):
+                grads = _flatten_dense_tensors(
+                    torch.autograd.grad(static_out, wanted, grad_out))
+        return _TrainGraphs(forward, backward, static_x, static_out.detach(),
+                            grad_out, grads, wanted, takes_grad)
 
 
 class Dense(nn.Module):

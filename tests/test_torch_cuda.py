@@ -687,8 +687,11 @@ def test_inception_graph_cache_keeps_the_newest(cuda_device):
 
 @pytest.mark.cuda
 def test_inception_training_and_autograd_never_replay(cuda_device):
-    """Training forwards run eagerly and are not counted; an inference
-    forward with autograd on runs eagerly and counts as ``eager``."""
+    """Training forwards never replay the inference graph and count no
+    inference path: with autograd on one replays the training graphs
+    (``inception.train_graph_replay``), under ``no_grad`` one runs eagerly
+    (``inception.train_eager``); an inference forward with autograd on
+    runs eagerly and counts as ``eager``."""
     import time
     net = _inception(cuda_device)
     x = _signals(64, torch.float32, cuda_device, 6)
@@ -697,6 +700,9 @@ def test_inception_training_and_autograd_never_replay(cuda_device):
     with torch.no_grad():
         net(x, train=True)
     assert _paths(t0) == (0, 0)
+    assert (_counted("inception.train_graph_replay", t0),
+            _counted("inception.train_eager", t0)) == (1, 1)
+    assert len(net._train_graphs) == 1
     t0 = time.perf_counter()
     got = net(x)
     assert got.requires_grad

@@ -370,6 +370,7 @@ def test_no_program_span_takes_a_harness_range_name():
             "trainer.to_device", "trainer.build_optimizer",
             "trainer.restore", "trainer.resolve",
             "trainer.stage", "inception.graph_replay", "inception.eager",
+            "inception.train_graph_replay", "inception.train_eager",
             "bn.kernel", "bn.plain", "pool.kernel", "pool.plain",
             "conv.merged", "conv.split",
             *CALLER_SPANS, *STEP_CHILDREN} <= set(names)
