@@ -18,14 +18,14 @@ so the profiler's trace shows it on its own clock beside the kernels
 launched inside it; under ``torch.autograd.profiler.emit_nvtx()`` the same
 ranges are NVTX ranges for Nsight.  Nothing turns tracing on or off.
 
-Granularity: spans go around a feature batch, a device batch, a train step
-or a set-up stage, never around a row, a read, a kernel or a convolution:
-at most 16 spans per 4,096-row device batch and 16 per train step.  Every
-name starts with its layer (``pipeline.``, ``reader.``, ``caller.``,
-``model.``, ``trainer.``, ``lstm.`` for the LSTM scan's counts,
-``inception.`` for the CNN's by path, ``bn.`` for its batch norms'
-by path, ``pool.`` for its max-pools' by path, ``conv.`` for its blocks'
-1x1 convs by path).
+Granularity: spans go around a feature batch, a chunk of input, a device
+batch, a train step or a set-up stage, never around a row, a read, a
+kernel or a convolution: at most 16 spans per 4,096-row device batch and
+16 per train step.  Every name starts with its layer (``pipeline.``,
+``reader.``, ``caller.``, ``model.``, ``trainer.``, ``lstm.`` for the LSTM
+scan's counts, ``inception.`` for the CNN's by path, ``bn.`` for its
+batch norms' by path, ``pool.`` for its max-pools' by path, ``conv.`` for
+its blocks' 1x1 convs by path).
 
 torch is imported inside ``trace`` only; a span looks torch up only when
 the process already holds it, so host processes stay torch-free.
@@ -50,13 +50,15 @@ class Record:
     name: ``spans[name]`` holds ``(parent, start, seconds)``,
     ``counts[name]`` holds ``(time, value)``; ``received`` holds
     ``(time, taken)`` for each ``extend`` with another process's
-    entries."""
+    entries.  ``add_span``, ``add_count``, ``take`` and ``extend`` hold
+    one lock, so threads may record while another takes."""
 
     def __init__(self, maxlen: int = RECORD_LEN):
         self.maxlen = maxlen
         self.spans: dict = {}
         self.counts: dict = {}
         self.received: deque = deque(maxlen=maxlen)
+        self._lock = threading.Lock()
 
     def _entries(self, table: dict, name: str) -> deque:
         entries = table.get(name)
@@ -66,10 +68,12 @@ class Record:
 
     def add_span(self, name: str, parent, start: float,
                  seconds: float) -> None:
-        self._entries(self.spans, name).append((parent, start, seconds))
+        with self._lock:
+            self._entries(self.spans, name).append((parent, start, seconds))
 
     def add_count(self, name: str, at: float, value) -> None:
-        self._entries(self.counts, name).append((at, value))
+        with self._lock:
+            self._entries(self.counts, name).append((at, value))
 
     def _sent(self, table: int, name: str, t0: float, t1: float) -> list:
         return [e for at, taken in list(self.received) if t0 <= at < t1
@@ -94,12 +98,13 @@ class Record:
         return [v for _, v in entries]
 
     def take(self) -> tuple:
-        """Everything recorded so far as ``(spans, counts)``, dicts of
-        lists, and an empty record: what a host process sends with its
-        work, for the receiving process's ``extend``.  Only for a process
-        that records on one thread."""
-        spans, counts, self.spans, self.counts = \
-            self.spans, self.counts, {}, {}
+        """Everything recorded so far, on every thread, as ``(spans,
+        counts)``, dicts of lists, and an empty record: what a host process
+        sends with its work, for the receiving process's ``extend``.  An
+        entry recorded while it runs goes with this take or the next."""
+        with self._lock:
+            spans, counts, self.spans, self.counts = \
+                self.spans, self.counts, {}, {}
         return ({k: list(v) for k, v in spans.items()},
                 {k: list(v) for k, v in counts.items()})
 
@@ -107,11 +112,12 @@ class Record:
         """File another process's ``take`` into this record, received now;
         the stamps keep that process's clock."""
         spans, counts = taken
-        for name, entries in spans.items():
-            self._entries(self.spans, name).extend(entries)
-        for name, entries in counts.items():
-            self._entries(self.counts, name).extend(entries)
-        self.received.append((time.perf_counter(), taken))
+        with self._lock:
+            for name, entries in spans.items():
+                self._entries(self.spans, name).extend(entries)
+            for name, entries in counts.items():
+                self._entries(self.counts, name).extend(entries)
+            self.received.append((time.perf_counter(), taken))
 
 
 RECORD = Record()

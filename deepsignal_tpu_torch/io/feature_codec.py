@@ -262,10 +262,12 @@ def iter_feature_batches_by_read(features_file: str,
     parser as one block, with no decode and encode of each line; rows split
     by "\\n" (or "\\r\\n") give the batches the text-mode read of the JAX
     package gives.  Each batch is a ``reader.group`` span (the wait for
-    the chunks that hold its rows and their grouping), a ``reader.parse``
-    span and a ``reader.rows`` count; one more ``reader.group`` span ends
-    the stream, with what was read after the last batch.  A row with fewer
-    than five fields raises ValueError."""
+    the chunks that hold its rows, ``reader.chunk_wait`` inside it, and
+    their grouping), a ``reader.parse`` span (``reader.native`` and
+    ``reader.decode`` inside it) and a ``reader.rows`` count; one more
+    ``reader.group`` span ends the stream, with what was read after the
+    last batch.  The reading thread's chunks are ``reader.read`` spans.  A
+    row with fewer than five fields raises ValueError."""
     blocks = _read_grouped_blocks(features_file, reads_per_batch, host_shard)
     try:
         while True:
@@ -344,7 +346,9 @@ class _ChunkReader:
     chunk in ``buf[CARRY_ROOM:end]`` of a buffer of its own, so that a batch
     is sliced from it without a copy.  One native call reads a chunk
     (``native.read_full``: a pipe gives 64 KiB a read, and the thread takes
-    the interpreter lock once a chunk).  An error of the thread is raised
+    the interpreter lock once a chunk), a ``reader.read`` span on the
+    thread; the iteration's wait for each chunk is a ``reader.chunk_wait``
+    span on the caller's thread.  An error of the thread is raised
     by the iteration.  ``close()`` stops the thread, which closes the file;
     a thread blocked on a silent pipe ends when the pipe gives data or
     ends."""
@@ -361,11 +365,12 @@ class _ChunkReader:
         try:
             at_eof = False
             while not at_eof:
-                buf = np.empty(self._size, np.uint8)
-                end = CARRY_ROOM
-                while end < buf.size and not at_eof:
-                    got, at_eof = native.read_full(self._fd, buf, end)
-                    end += got
+                with span("reader.read"):
+                    buf = np.empty(self._size, np.uint8)
+                    end = CARRY_ROOM
+                    while end < buf.size and not at_eof:
+                        got, at_eof = native.read_full(self._fd, buf, end)
+                        end += got
                 if not self._put((buf, end, at_eof)):
                     return
         except Exception as exc:  # handed to the consumer, which raises it
@@ -384,7 +389,8 @@ class _ChunkReader:
 
     def __iter__(self):
         while True:
-            item = self._queue.get()
+            with span("reader.chunk_wait"):
+                item = self._queue.get()
             if isinstance(item, Exception):
                 raise item
             yield item

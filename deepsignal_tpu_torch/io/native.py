@@ -18,7 +18,7 @@ to the C side.  ``parse_feature_block``, ``read_full``,
 ``find_read_batch_ends``, ``format_call_block``, ``count_read_runs``,
 ``segment_stats`` and ``format_rows6`` count their calls (``.calls``), so
 a run can show that it went through the native code.  This module imports
-numpy only.
+numpy only (and the port's torch-free ``core.logging``).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..core.logging import span
 from ..ops.cuda.build import load_library
 
 _PTR = ctypes.c_void_p
@@ -171,31 +172,36 @@ def parse_feature_block(block: bytes, kmer_len: int, signal_len: int):
     lens, signals, labels): sampleinfo a list of str (the first six columns
     joined by tabs), kmers and lens [N, kmer_len] int32, means and stds
     [N, kmer_len] float32, signals [N, signal_len] float32, labels [N]
-    int32.  A malformed row raises ValueError with its line number."""
+    int32.  A malformed row raises ValueError with its line number.  The
+    two native calls, with the allocation of their outputs, are a
+    ``reader.native`` span, the decode of the sampleinfo strings a
+    ``reader.decode`` span."""
     block = bytes(block)  # a bytes object ends in the NUL the parser needs
     k, s = int(kmer_len), int(signal_len)
     if k < 0 or s < 0:
         raise ValueError(f"kmer_len {k} and signal_len {s} must be >= 0")
     lib = _fastparse()
-    n = lib.ds_count_feature_rows(block, len(block))
-    kmers = np.empty((n, k), np.int32)
-    means = np.empty((n, k), np.float32)
-    stds = np.empty((n, k), np.float32)
-    lens = np.empty((n, k), np.int32)
-    signals = np.empty((n, s), np.float32)
-    labels = np.empty(n, np.int32)
-    info = np.empty((n, 2), np.int64)
-    bad = _I64(0)
-    rc = lib.ds_parse_feature_block(
-        block, len(block), k, s, n, _ptr(kmers), _ptr(means), _ptr(stds),
-        _ptr(lens), _ptr(signals), _ptr(labels), _ptr(info),
-        ctypes.byref(bad))
+    with span("reader.native"):
+        n = lib.ds_count_feature_rows(block, len(block))
+        kmers = np.empty((n, k), np.int32)
+        means = np.empty((n, k), np.float32)
+        stds = np.empty((n, k), np.float32)
+        lens = np.empty((n, k), np.int32)
+        signals = np.empty((n, s), np.float32)
+        labels = np.empty(n, np.int32)
+        info = np.empty((n, 2), np.int64)
+        bad = _I64(0)
+        rc = lib.ds_parse_feature_block(
+            block, len(block), k, s, n, _ptr(kmers), _ptr(means),
+            _ptr(stds), _ptr(lens), _ptr(signals), _ptr(labels), _ptr(info),
+            ctypes.byref(bad))
     if rc in _PARSE_ERRORS:
         raise ValueError(_PARSE_ERRORS[rc] % bad.value)
     if rc != 0:
         raise RuntimeError(f"ds_parse_feature_block returned {rc}")
     parse_feature_block.calls += 1
-    sampleinfo = [block[a:b].decode() for a, b in info.tolist()]
+    with span("reader.decode"):
+        sampleinfo = [block[a:b].decode() for a, b in info.tolist()]
     return sampleinfo, kmers, means, stds, lens, signals, labels
 
 

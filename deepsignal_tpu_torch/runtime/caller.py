@@ -10,7 +10,8 @@ Up to ``pipeline_depth`` feature batches are in flight while the host
 formats and writes the previous one.
 
 Each stage is a span (``core/logging.py``), once per device batch:
-``caller.read_wait`` (each pull from the input), ``caller.dispatch``
+``caller.read_wait`` (each pull from the input), ``caller.rechunk`` (the
+copies that cut the input into device batches), ``caller.dispatch``
 holding ``caller.wire`` (wire arrays, pinning, the copies' enqueue) and
 ``caller.forward`` (the model's launches, sigmoid, argmax, the fetch's
 enqueue), ``caller.wait`` (the wait on the device), ``caller.format``
@@ -196,7 +197,8 @@ def coalesce_feature_batches(batches: Iterable[FeatureBatch],
     """Re-chunk a stream of FeatureBatches into batches of exactly ``n``
     rows (the last one may be smaller), preserving row order.  Each pull
     from ``batches`` is a ``caller.read_wait`` span: the wait on the
-    input, without the re-chunking's copies."""
+    input, without the re-chunking's copies; the concatenation and slices
+    that make each batch are a ``caller.rechunk`` span."""
     pending: list = []
     count = 0
     batches = iter(batches)
@@ -208,15 +210,18 @@ def coalesce_feature_batches(batches: Iterable[FeatureBatch],
         pending.append(fb)
         count += len(fb)
         while count >= n:
-            cat = FeatureBatch.concat(pending) if len(pending) > 1 \
-                else pending[0]
-            yield cat[:n]
-            rest = cat[n:]
-            pending = [rest] if len(rest) else []
-            count = len(rest)
+            with span("caller.rechunk"):
+                cat = FeatureBatch.concat(pending) if len(pending) > 1 \
+                    else pending[0]
+                out, rest = cat[:n], cat[n:]
+                pending = [rest] if len(rest) else []
+                count = len(rest)
+            yield out
     if count:
-        yield FeatureBatch.concat(pending) if len(pending) > 1 \
-            else pending[0]
+        with span("caller.rechunk"):
+            out = FeatureBatch.concat(pending) if len(pending) > 1 \
+                else pending[0]
+        yield out
 
 
 def call_mods_on_batches(caller: ModCaller, batches: Iterable[FeatureBatch],

@@ -3,10 +3,14 @@ deepsignal_tpu/runtime/pipeline.py).
 
 - The feature reader (``_file_reader_proc``, ``stream_file_feature_batches``)
   parses a feature TSV into read-grouped ``FeatureBatch``es with the native
-  parser and queues them, so that parsing overlaps the device
-  (call_modifications.py:450-455).  Each batch carries the reader's spans
-  and counts (``core/logging.py``), which the consumer files into its own
-  process's record as the batch arrives.
+  parser and sends them down a one-way ``Pipe``, so that parsing overlaps
+  the device (call_modifications.py:450-455): a bounded queue and a
+  sending thread that pickles each batch with ``ForkingPickler``, the
+  parts of an ``mp.Queue``, used openly so that the pickling
+  (``reader.pickle``) and the consumer's receipt (``pipeline.recv``) are
+  spans of their own.  Each batch carries the reader's spans and counts
+  (``core/logging.py``), which the consumer files into its own process's
+  record as the batch arrives.
 - The extract workers (``_extract_worker``) featurize batches of reads:
   ``run_extract`` writes their feature rows to a TSV through a writer
   process (extract_features.py:306-478), and
@@ -47,7 +51,9 @@ import os
 import queue as queue_mod
 import threading
 import time
+import traceback
 from multiprocessing.connection import wait
+from multiprocessing.reduction import ForkingPickler
 from typing import Iterator, Optional
 
 from ..core.config import FeatureConfig
@@ -65,33 +71,89 @@ from ..parallel.dist import shard_file_list
 QUEUE_MAX_BATCHES = 100  # backpressure bound, as in the JAX package
 READER_POLL_S = 0.5      # how long a wait lasts before it checks liveness
 READER_NAME = "feature-reader"
+SENDER_NAME = "feature-sender"  # the reader process's sending thread
 WORKER_NAME = "extract-worker"
 WRITER_NAME = "feature-writer"
 JOIN_S = 10.0            # how long a finished process may take to exit
+_END = object()          # the last item a thread of this module queues
 
 
-def _file_reader_proc(features_file: str, batch_q, reads_per_batch: int,
+class _Sender:
+    """The reader process's end of its pipe to the consumer: ``put`` queues
+    an item (blocking while ``QUEUE_MAX_BATCHES`` wait), a thread of its
+    own pickles each with ``ForkingPickler`` (a ``reader.pickle`` span)
+    and sends the bytes, the parts of an ``mp.Queue`` used openly.
+    ``join`` waits until every queued item is sent; ``close`` sends what
+    is queued and ends the thread.  Once the consumer has gone, or an item
+    could not be sent, the rest are dropped: the consumer then finds the
+    reader ended before its last item."""
+
+    def __init__(self, conn):
+        self._conn = conn
+        self._items = queue_mod.Queue(maxsize=QUEUE_MAX_BATCHES)
+        self._thread = threading.Thread(target=self._send, name=SENDER_NAME,
+                                        daemon=True)
+        self._thread.start()
+
+    def put(self, item) -> None:
+        self._items.put(item)
+
+    def join(self) -> None:
+        self._items.join()
+
+    def close(self) -> None:
+        self._items.put(_END)
+        self._thread.join()
+
+    def _send(self) -> None:
+        gone = False
+        while True:
+            item = self._items.get()
+            try:
+                if item is _END:
+                    return
+                if gone:
+                    continue
+                try:
+                    with span("reader.pickle"):
+                        data = ForkingPickler.dumps(item)
+                    self._conn.send_bytes(data)
+                except OSError:  # the consumer closed its end
+                    gone = True
+                except Exception:  # as mp.Queue's feeder: print, and stop
+                    traceback.print_exc()  # sending; the consumer raises
+                    gone = True
+            finally:
+                self._items.task_done()
+
+
+def _file_reader_proc(features_file: str, conn, reads_per_batch: int,
                       host_shard=None):
-    """Queue the file's read-grouped batches (of ``host_shard``, see
-    ``iter_feature_batches_by_read``) as ``("batch", fb, taken)``, then
-    ``("done", n, taken)`` with the reader's count of native parses;
-    ``taken`` is what the reader recorded since its last item
+    """Send the file's read-grouped batches (of ``host_shard``, see
+    ``iter_feature_batches_by_read``) down ``conn`` as ``("batch", fb,
+    taken)``, then ``("done", n, taken)`` with the reader's count of native
+    parses; ``taken`` is what the reader recorded since its last item
     (``RECORD.take()``: the batch's ``reader.group``, ``reader.parse`` and
-    ``reader.rows``, the last put's ``reader.put``).  An exception is
-    queued instead, for the consumer to raise."""
+    ``reader.rows``, the last put's ``reader.put``, and the ``reader.read``
+    and ``reader.pickle`` spans its other threads ended meanwhile; the
+    ``done`` item is built once every batch is sent, so it carries the
+    rest).  An exception is sent instead, for the consumer to raise."""
+    sender = _Sender(conn)
     try:
         for fb in iter_feature_batches_by_read(features_file,
                                                reads_per_batch, host_shard):
             with span("reader.put"):
-                batch_q.put(("batch", fb, RECORD.take()))
+                sender.put(("batch", fb, RECORD.take()))
+        sender.join()
+        sender.put(("done", native.parse_feature_block.calls, RECORD.take()))
     except Exception as exc:  # handed to the consumer, which raises it
-        batch_q.put(exc)
-        return
-    batch_q.put(("done", native.parse_feature_block.calls, RECORD.take()))
+        sender.put(exc)
+    finally:
+        sender.close()
 
 
 class _ReaderStream:
-    """The read-grouped batches a reader process queues.  The process starts
+    """The read-grouped batches a reader process sends.  The process starts
     when the stream is made, so that its start and first parse run beside
     the caller's own set-up; ``close()`` stops it, read or not."""
 
@@ -99,12 +161,13 @@ class _ReaderStream:
                  host_shard=None):
         ctx = mp.get_context("spawn")
         self._file = features_file
-        self._q = ctx.Queue(maxsize=QUEUE_MAX_BATCHES)
+        self._conn, child = ctx.Pipe(duplex=False)
         self._reader = ctx.Process(
             target=_file_reader_proc,
-            args=(features_file, self._q, reads_per_batch, host_shard),
+            args=(features_file, child, reads_per_batch, host_shard),
             name=READER_NAME, daemon=True)
         self._reader.start()
+        child.close()
         self._items = self._consume()
 
     def __iter__(self):
@@ -121,24 +184,34 @@ class _ReaderStream:
         if self._reader.is_alive():
             self._reader.terminate()
         self._reader.join(timeout=READER_POLL_S * 10)
-        self._q.close()
+        self._conn.close()
+
+    def _receive(self):
+        """The reader's next item: the wait for it in slices of
+        ``READER_POLL_S`` (``pipeline.get``), its bytes taken off the pipe
+        and unpickled (``pipeline.recv``, inside it).  A reader that ended
+        without sending it raises RuntimeError with its exit code."""
+        while True:
+            alive = self._reader.is_alive()
+            try:
+                with span("pipeline.get"):
+                    if self._conn.poll(READER_POLL_S):
+                        with span("pipeline.recv"):
+                            return ForkingPickler.loads(
+                                self._conn.recv_bytes())
+            except (EOFError, OSError):  # the reader's end of the pipe
+                alive = False                # closed, between or in items
+            if not alive:  # it was gone before a wait that found nothing
+                self._reader.join(timeout=READER_POLL_S * 10)
+                raise RuntimeError(
+                    f"the feature reader of {self._file} ended with exit "
+                    f"code {self._reader.exitcode} before the end of the "
+                    f"file")
 
     def _consume(self) -> Iterator[FeatureBatch]:
         try:
             while True:
-                try:
-                    with span("pipeline.get"):
-                        item = self._q.get(timeout=READER_POLL_S)
-                except queue_mod.Empty:
-                    if self._reader.is_alive():
-                        continue
-                    try:  # what the reader queued just before it ended
-                        item = self._q.get(timeout=READER_POLL_S)
-                    except queue_mod.Empty:
-                        raise RuntimeError(
-                            f"the feature reader of {self._file} ended with "
-                            f"exit code {self._reader.exitcode} before the "
-                            f"end of the file") from None
+                item = self._receive()
                 if isinstance(item, BaseException):
                     raise item
                 kind, payload, taken = item
@@ -201,9 +274,6 @@ def _extract_worker(conn, cfg: FeatureConfig, motif_seqs, chrom2len,
         return
     conn.send(("done", processed, native.segment_stats.calls,
                native.format_rows6.calls))
-
-
-_END = object()
 
 
 class _ExtractPool:

@@ -26,9 +26,8 @@ Spans (``core/logging.py``): a step is ``trainer.step`` holding
 ``trainer.zero_grad``, ``model.forward``, ``trainer.loss``,
 ``trainer.backward``, ``trainer.optimizer`` and ``trainer.metrics``;
 ``trainer.stage`` and ``trainer.resolve`` are a batch's copy in and a
-step's metrics out; ``trainer.build``, ``trainer.to_device``,
-``trainer.build_optimizer`` and ``trainer.restore`` are the set-up's
-stages.
+step's metrics out; ``trainer.build``, ``trainer.build_optimizer`` and
+``trainer.restore`` are the set-up's stages.
 
 On a mesh of ranks (``parallel/mesh.py``; one process per GPU) every rank
 sees the same global batch and trains on its contiguous block of it; a
@@ -141,8 +140,7 @@ class Trainer:
             train_cfg.seed).generate_state(2))
         with span("trainer.build"):
             model = DeepSignalNet(model_cfg, seed=init_seed)
-        with span("trainer.to_device"):
-            self.model = model.to(self.device)
+        self.model = model.to(self.device)
         if mesh is not None:
             self.model.set_mesh(mesh)
         self._tp_index = ([n for n, _ in self.model.named_parameters()]

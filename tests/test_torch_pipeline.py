@@ -151,6 +151,47 @@ def test_the_reader_starts_with_the_stream_and_stops_unread(tmp_path):
     assert _readers() == []
 
 
+def test_a_reader_never_read_stops_at_the_queues_bound(tmp_path):
+    """A consumer that takes nothing: the reader's sending thread blocks on
+    its first item, the queue fills, and the reader stops parsing with
+    ``QUEUE_MAX_BATCHES`` + 2 batches in flight (one sending, the queue's,
+    one waiting to be queued); once the consumer reads, every batch and
+    the end arrive, in order."""
+    import subprocess
+    import sys
+    tsv = _write_tsv(tmp_path / "f.tsv", 300, lambda r: 1)
+    code = ("import pickle, threading, time\n"
+            "from deepsignal_tpu_torch.io import native\n"
+            "from deepsignal_tpu_torch.runtime import pipeline\n"
+            "go, got = threading.Event(), []\n"
+            "class Held:\n"
+            "    def send_bytes(self, data):\n"
+            "        go.wait()\n"
+            "        got.append(pickle.loads(data))\n"
+            "t = threading.Thread(target=pipeline._file_reader_proc,\n"
+            f"                     args=({tsv!r}, Held(), 1), daemon=True)\n"
+            "t.start()\n"
+            "seen = []\n"
+            "while len(seen) < 480 and (len(seen) < 12\n"
+            "                           or seen[-1] != seen[-12]):\n"
+            "    time.sleep(0.25)\n"
+            "    seen.append(native.parse_feature_block.calls)\n"
+            "go.set()\n"
+            "t.join(60)\n"
+            "print(seen[-1], pipeline.QUEUE_MAX_BATCHES, t.is_alive(),\n"
+            "      [item[0] for item in got].count('batch'), got[-1][0],\n"
+            "      [item[1].sampleinfo[0].split()[4] for item in got[:-1]]\n"
+            "      == ['read%d' % r for r in range(300)])\n")
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=os.path.dirname(os.path.dirname(__file__)),
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    held, bound, alive, batches, last, in_order = out.stdout.split()
+    assert int(held) == int(bound) + 2
+    assert (alive, batches, last, in_order) == ("False", "300", "done",
+                                                "True")
+
+
 def test_the_reader_modules_import_no_torch():
     import subprocess
     import sys

@@ -191,8 +191,8 @@ def test_the_trainer_set_up_records_its_stages(trainer):
     _, t0, t1 = trainer
     names = [name for _, name, _, _ in _recorded(t0, t1)
              if name.startswith("trainer.")]
-    assert names == ["trainer.build", "trainer.to_device",
-                     "trainer.build_optimizer", "trainer.restore"]
+    assert names == ["trainer.build", "trainer.build_optimizer",
+                     "trainer.restore"]
 
 
 def test_a_train_step_records_its_children_in_order(trainer):
@@ -309,11 +309,12 @@ def test_the_reader_process_records_without_torch(tmp_path):
     """What the spawned reader runs, in a fresh interpreter: its items
     carry their entries, and torch is never imported."""
     tsv = _write_features(tmp_path / "f.tsv", 40)
-    code = ("import sys\n"
+    code = ("import pickle, sys\n"
             "from deepsignal_tpu_torch.runtime.pipeline import "
             "_file_reader_proc\n"
             "class Q(list):\n"
-            "    put = list.append\n"
+            "    def send_bytes(self, data):\n"
+            "        self.append(pickle.loads(data))\n"
             "q = Q()\n"
             f"_file_reader_proc({tsv!r}, q, 1)\n"
             "print([(kind, len(taken[0].get('reader.parse', ())),\n"
@@ -364,10 +365,13 @@ def _harness_ranges() -> set:
 def test_no_program_span_takes_a_harness_range_name():
     names = _span_names()
     assert {"reader.group", "reader.parse", "reader.put", "reader.rows",
+            "reader.read", "reader.chunk_wait", "reader.native",
+            "reader.decode", "reader.pickle", "pipeline.recv",
+            "caller.rechunk",
             "pipeline.get", "caller.read_wait", "caller.build",
             "model.forward", "model.encoder", "model.inception",
             "model.head", "trainer.step", "trainer.build",
-            "trainer.to_device", "trainer.build_optimizer",
+            "trainer.build_optimizer",
             "trainer.restore", "trainer.resolve",
             "trainer.stage", "inception.graph_replay", "inception.eager",
             "inception.train_graph_replay", "inception.train_eager",
